@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Phases, in order, each printing one JSON line; any failure prints that
+phase's line with ``"ok": false`` and exits non-zero without a result:
+
+1. setup   — needs a CUDA device; prints the card's name and power limit
+             (``nvidia-smi``) and builds every kernel from ``csrc/``.
+2. kernels — each CUDA kernel against its plain PyTorch version on the
+             card at the serve phase's shapes (bytes equal; the fused pair
+             also at S = 11), with median times over 25 launches and the
+             card's least time for the same work.
+3. reference — the smoke config (float32) served by the engine under
+             ``seda`` with the kernels gives the tokens of a plain
+             prefill + decode loop.
+4. serve   — full-width minitron-4b (32 layers, d_model 3072, vocab
+             256000, bf16, random weights from a seed) served by
+             ``SecureServingEngine(scheme="seda", use_kernel=True)``: 8
+             requests, 64-token prompts, 16 new tokens, page_tokens 8.
+             Every kernel's launch count must be > 0; the same requests
+             under ``use_kernel=False`` and under ``off`` must give the
+             same tokens.  The three configs run in turns, twice each.
+5. profile — where a steady decode tick's time goes (CUPTI trace):
+             device busy time, idle share, the crypto kernels' share.
+6. tamper  — one flipped ciphertext byte of a live page makes the next
+             ``step()`` raise ``IntegrityError``.
+
+Then a ``{"kernels": [...]}`` line and, last, the device line.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import os
+
+# Deterministic cuBLAS (set before CUDA initializes), so the three serve
+# runs differ only in their crypto.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import json  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+import traceback  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the float32
+# rate outside the tensor cores.  The data sheet gives no 32-bit integer
+# rate; counting integer operations against the float32 rate keeps each
+# bound a lower bound on time.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+AES_OPS_PER_BLOCK = 1056   # 9 rounds x 16 B x 7 + final 16 x 2 + first ARK 16
+
+SERVE = dict(n_requests=8, prompt_len=64, new_tokens=16, page_tokens=8)
+PAGES_PER_SLOT = 10        # 64 + 16 tokens = 10 pages of 8
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, n: int = 25, warmup: int = 3) -> float:
+    """Median over ``n`` calls of CUDA-event time around one call: what
+    a caller waits for, host-side launch gaps included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _device_events(prof) -> list:
+    """The kernel executions a profiler trace saw on the card."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.device_time_total > 0]
+
+
+def kernel_ms(fn, symbol: str, n: int = 25) -> tuple:
+    """Median device time of the CUDA kernel ``symbol`` over ``n`` calls of
+    ``fn``, from the profiler's CUPTI trace ("cupti").  Where the trace
+    shows no device time, the median of CUDA-event times around batches
+    of 10 back-to-back calls, per call ("events")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = sorted(e.device_time_total / 1e3 for e in _device_events(prof)
+                   if symbol in e.name)
+    if len(times) >= n:
+        return times[len(times) // 2], "cupti"
+    return median_ms(lambda: [fn() for _ in range(10)], n=n) / 10, "events"
+
+
+def bound(bytes_moved: float, ops: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_setup() -> dict:
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    paths = build.build()
+    regs = {name: [line.strip() for line in build.ptxas_report(name)
+                   .splitlines() if "registers" in line or "spill" in line]
+            for name in paths}
+    return {"torch": torch.__version__, "cuda": torch.version.cuda,
+            "device": torch.cuda.get_device_name(0),
+            "build_s": round(time.perf_counter() - t0, 3),
+            "libraries": {k: str(v.relative_to(ROOT)) if v.is_relative_to(ROOT)
+                          else str(v) for k, v in paths.items()},
+            "ptxas": regs}
+
+
+def _serve_shapes(cfg) -> dict:
+    """optBlk counts the serve phase gives each kernel (64 B blocks)."""
+    tok_bytes = cfg.n_kv * cfg.head_dim * 2                  # bf16 K or V
+    blocks_per_page = (cfg.n_layers * SERVE["page_tokens"] * tok_bytes) // 64
+    return {"read": SERVE["n_requests"] * PAGES_PER_SLOT * blocks_per_page,
+            "write": SERVE["n_requests"] * blocks_per_page}
+
+
+def phase_kernels(cfg, results: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.kernels.aes_ctr import kernel as aes_k
+    from repro_torch.kernels.aes_ctr import ref as aes_ref
+    from repro_torch.kernels.fused_crypt_mac import kernel as fused_k
+    from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
+    from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
+
+    dev = torch.device("cuda")
+    shapes = _serve_shapes(cfg)
+    keys = SecureKeys.derive(0, device=dev)
+    rng = np.random.default_rng(0)
+
+    def u32(shape) -> torch.Tensor:
+        a = rng.integers(0, 2 ** 32, shape, dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(a).to(dev)
+
+    def err(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    out = {}
+    n = shapes["read"]
+    counters = u32((n, 4))
+    got = aes_k.aes_ctr_keystream(counters, keys.round_keys)
+    torch.cuda.synchronize()
+    want = aes_ref.aes_ctr_keystream_lanes_ref(counters, keys.round_keys)
+    e = err(got, want)
+    if e:
+        raise AssertionError(f"aes_ctr_keystream differs from plain: {e}")
+    b_ms, b_by = bound(n * 32 + 176 + 256, n * AES_OPS_PER_BLOCK)
+    call = lambda: aes_k.aes_ctr_keystream(counters, keys.round_keys)
+    ms, timing = kernel_ms(call, "aes_ctr_keystream_kernel")
+    out["aes_ctr_keystream"] = dict(
+        n=n, max_abs_err=e, ms=ms, timing=timing, call_ms=median_ms(call),
+        plain_ms=median_ms(lambda: aes_ref.aes_ctr_keystream_lanes_ref(
+            counters, keys.round_keys), n=20),
+        bound_ms=b_ms, bound_by=b_by)
+
+    for name, fn, ref, n in (
+            ("fused_crypt_mac", fused_k.fused_crypt_mac,
+             fused_ref.fused_crypt_mac_ref, shapes["read"]),
+            ("fused_crypt_mac_write", fused_k.fused_crypt_mac_write,
+             fused_ref.fused_crypt_mac_write_ref, shapes["write"])):
+        worst = 0
+        for s in (4, 11):
+            args = (u32((n, 4 * s)), u32((n, 4)),
+                    fused_ops._div_lanes(keys.round_keys, s), u32((n, 8)),
+                    keys.hash_key[: 4 * s + 8].contiguous())
+            got_out, got_nh = fn(*args)
+            torch.cuda.synchronize()
+            want_out, want_nh = ref(*args)
+            worst = max(worst, err(got_out, want_out), err(got_nh, want_nh))
+            if worst:
+                raise AssertionError(f"{name} (S={s}) differs from plain: "
+                                     f"{worst}")
+            if s == 4:
+                timed = args
+        s = 4
+        moved = n * (16 * s + 16 + 32 + 16 * s + 8) + 16 * s + 4 * (4 * s + 8)
+        b_ms, b_by = bound(moved, n * (16 * s + 16))
+        ms, timing = kernel_ms(lambda: fn(*timed), "fused_crypt_mac_kernel")
+        out[name] = dict(
+            n=n, max_abs_err=worst, ms=ms, timing=timing,
+            call_ms=median_ms(lambda: fn(*timed)),
+            plain_ms=median_ms(lambda: ref(*timed), n=20),
+            bound_ms=b_ms, bound_by=b_by)
+    results.update(out)
+    return {k: {kk: (round(vv, 6) if isinstance(vv, float) else vv)
+                for kk, vv in v.items()} for k, v in out.items()}
+
+
+def _dense_tokens(cfg, params, prompt: list, n_new: int, max_len: int):
+    """Plain prefill + decode loop (no pool, no crypto)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import greedy_sample
+    tokens = torch.tensor([prompt], device="cuda")
+    logits, caches = lm.lm_prefill(cfg, params, {"tokens": tokens}, max_len)
+    tok = greedy_sample(logits)
+    out = [int(tok[0, 0])]
+    for _ in range(n_new - 1):
+        logits, caches = lm.lm_decode(cfg, params, tok.long(), caches)
+        tok = greedy_sample(logits)
+        out.append(int(tok[0, 0]))
+    return out
+
+
+def phase_reference() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch("minitron-4b")
+    cfg = arch.make_smoke_config()
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
+               for n in (5, 7, 9)]
+    eng = SecureServingEngine(arch, cfg, params, scheme="seda",
+                              use_kernel=True, max_slots=2, page_tokens=4,
+                              pages_per_slot=4)
+    rids = [eng.submit(prompt=p, max_new_tokens=6) for p in prompts]
+    done = eng.run()
+    got = [done[r].generated for r in rids]
+    with torch.no_grad():
+        want = [_dense_tokens(cfg, params, p, 6, 16) for p in prompts]
+    if got != want:
+        raise AssertionError(f"engine tokens {got} != plain loop {want}")
+    return {"config": cfg.name, "requests": len(prompts), "tokens": got}
+
+
+def _full_params(cfg):
+    """Random full-width weights from a seed, at per-layer fan-in scale.
+
+    ``init_params`` follows the reference's fan-in over the stacked
+    shape, which makes every 32-layer block ~sqrt(32) too small: the
+    residual stream stays ~ the token embedding and greedy decoding
+    repeats the last token.  Rescaling the stacked fan-in leaves to one
+    layer's fan-in makes the tokens depend on attention over the
+    decrypted KV pages.
+    """
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    with torch.no_grad():
+        for seg in params["segments"]:
+            for block in seg:
+                for group in ("attn", "ffn"):
+                    for w in block[group].values():
+                        w.mul_(cfg.n_layers ** 0.5)
+    return params
+
+
+def _serve_once(arch, cfg, params, prompts, scheme, use_kernel):
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import SecureServingEngine
+    eng = SecureServingEngine(
+        arch, cfg, params, scheme=scheme, use_kernel=use_kernel,
+        max_slots=SERVE["n_requests"], page_tokens=SERVE["page_tokens"],
+        pages_per_slot=PAGES_PER_SLOT)
+    rids = [eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"])
+            for p in prompts]
+    torch.cuda.synchronize()
+    reset_launches()                       # main path starts here
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)              # ... and ends here
+    tokens = [done[r].generated for r in rids]
+    n_tok = sum(len(t) for t in tokens)
+    return eng, tokens, {
+        "scheme": scheme, "use_kernel": use_kernel, "wall_s": wall,
+        "tokens": n_tok, "tok_per_s": n_tok / wall, "ticks": eng.tick,
+        "stats": dict(eng.stats), "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve(arch, cfg, results: dict) -> dict:
+    import numpy as np
+    import torch
+    params = _full_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, SERVE["prompt_len"])))
+               for _ in range(SERVE["n_requests"])]
+    with torch.no_grad():
+        logits, _ = _prefill_logits(cfg, params, prompts[0])
+    if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(
+            logits.float()).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or misshapen")
+    # In turns (A B C C B A) so drift on the card hits every config alike;
+    # the first seda_kernel run is the main path whose launches count.
+    order = [("seda_kernel", "seda", True), ("seda_plain", "seda", False),
+             ("off", "off", False)]
+    runs: dict = {key: [] for key, _, _ in order}
+    tokens: dict = {}
+    for key, scheme, use_kernel in order + order[::-1]:
+        eng, toks, run = _serve_once(arch, cfg, params, prompts, scheme,
+                                     use_kernel)
+        if tokens.setdefault(key, toks) != toks:
+            raise AssertionError(f"{key}: tokens differ between two runs")
+        runs[key].append(run)
+        del eng
+        torch.cuda.empty_cache()
+    main = runs["seda_kernel"][0]
+    zero = [k for k, v in main["launches"].items() if v <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{zero}")
+    if main["stats"]["fused_write_ticks"] <= 0:
+        raise AssertionError("fused_write_ticks == 0")
+    if not (tokens["seda_kernel"] == tokens["seda_plain"] == tokens["off"]):
+        raise AssertionError("tokens differ between seda+kernels, seda plain "
+                             "and off")
+    flat = [t for seq in tokens["seda_kernel"] for t in seq]
+    if (any(len(t) != SERVE["new_tokens"] for t in tokens["seda_kernel"])
+            or not all(0 <= t < cfg.vocab for t in flat)):
+        raise AssertionError("wrong token counts or ids out of range")
+    results["launches"] = main["launches"]
+    results["params"] = params
+    results["prompts"] = prompts
+    return {"config": cfg.name, "n_params": n_params,
+            "distinct_tokens": len(set(flat)),
+            "main_path": {k: main[k] for k in ("launches", "stats", "ticks")},
+            "tok_per_s": {k: [r["tok_per_s"] for r in v]
+                          for k, v in runs.items()},
+            "wall_s": {k: [r["wall_s"] for r in v] for k, v in runs.items()},
+            "peak_mem_gb": max(r["peak_mem_gb"] for v in runs.values()
+                               for r in v),
+            "first_request_tokens": tokens["seda_kernel"][0]}
+
+
+def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
+                   n_ticks: int = 3) -> dict:
+    """Device busy time and the top kernels over ``n_ticks`` steady
+    decode ticks (all 8 requests running), from a CUPTI trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import SecureServingEngine
+    eng = SecureServingEngine(
+        arch, cfg, params, scheme=scheme, use_kernel=use_kernel,
+        max_slots=SERVE["n_requests"], page_tokens=SERVE["page_tokens"],
+        pages_per_slot=PAGES_PER_SLOT)
+    for p in prompts:
+        eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"])
+    for _ in range(2):                     # admission + one warm tick
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n_ticks
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_ticks
+    kernels = _device_events(prof)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.device_time_total / 1e3)
+    busy = sum(by_name.values()) / n_ticks
+    crypto = sum(v for k, v in by_name.items()
+                 if "aes_ctr_keystream_kernel" in k
+                 or "fused_crypt_mac_kernel" in k) / n_ticks
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"tick_ms": plain_wall * 1e3, "profiled_tick_ms": wall * 1e3,
+            "device_busy_ms": busy, "crypto_kernel_ms": crypto,
+            "device_idle_share": (1 - busy / (wall * 1e3)) if kernels else None,
+            "kernel_launches_per_tick": len(kernels) / n_ticks,
+            "top_kernels_ms_per_tick": [(k[:90], v / n_ticks) for k, v in top]}
+
+
+def phase_profile(arch, cfg, results: dict) -> dict:
+    out = {}
+    for key, scheme, use_kernel in (("seda_kernel", "seda", True),
+                                    ("off", "off", False)):
+        out[key] = _profile_ticks(arch, cfg, results["params"],
+                                  results["prompts"], scheme, use_kernel)
+    return out
+
+
+def _leaves(tree) -> list:
+    from repro_torch.models.layers import tree_map
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _prefill_logits(cfg, params, prompt):
+    import torch
+
+    from repro_torch.models import lm
+    tokens = torch.tensor([prompt], device="cuda")
+    return lm.lm_prefill(cfg, params, {"tokens": tokens}, len(prompt))
+
+
+def phase_tamper(arch, cfg, params) -> dict:
+    import numpy as np
+
+    from repro_torch.serve.engine import IntegrityError, SecureServingEngine
+    eng = SecureServingEngine(arch, cfg, params, scheme="seda",
+                              use_kernel=True, max_slots=2,
+                              page_tokens=SERVE["page_tokens"],
+                              pages_per_slot=PAGES_PER_SLOT)
+    rng = np.random.default_rng(2)
+    for _ in range(2):
+        eng.submit(prompt=list(map(int, rng.integers(1, cfg.vocab, 20))),
+                   max_new_tokens=8)
+    eng.step()
+    eng.step()
+    page = eng.slots[0].pages[0]
+    eng.pool.cts[0][page, 123] ^= 0x10
+    try:
+        eng.step()
+    except IntegrityError as e:
+        return {"page": int(page), "raised": type(e).__name__,
+                "message": str(e)}
+    raise AssertionError("a flipped ciphertext byte was not detected")
+
+
+KERNEL_META = {
+    "aes_ctr_keystream": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
+                          "src/repro/kernels/aes_ctr/kernel.py:178"),
+    "fused_crypt_mac": ("src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
+                        "src/repro/kernels/fused_crypt_mac/kernel.py:274"),
+    "fused_crypt_mac_write": (
+        "src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
+        "src/repro/kernels/fused_crypt_mac/kernel.py:284"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+        from repro_torch.configs import get_arch
+    except ImportError as e:
+        emit({"phase": "setup", "ok": False,
+              "error": f"cannot import the port: {e}"})
+        return 2
+    results: dict = {}
+    arch = get_arch("minitron-4b")
+    cfg = arch.make_config()
+    phases = [
+        ("setup", phase_setup),
+        ("kernels", lambda: phase_kernels(cfg, results)),
+        ("reference", phase_reference),
+        ("serve", lambda: phase_serve(arch, cfg, results)),
+        ("profile", lambda: phase_profile(arch, cfg, results)),
+        ("tamper", lambda: phase_tamper(arch, cfg, results["params"])),
+    ]
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        try:
+            info = fn()
+        except Exception as e:  # report the failing phase, then stop
+            emit({"phase": name, "ok": False, "error": repr(e),
+                  "traceback": traceback.format_exc()[-4000:]})
+            return 1
+        emit({"phase": name, "ok": True,
+              "seconds": round(time.perf_counter() - t0, 3), **info})
+    kernels = []
+    for name, (source, replaces) in KERNEL_META.items():
+        k = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": results["launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Argument checks and launch plumbing shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["check_operand", "on_cpu", "stream_handle", "raise_on_error",
+           "bind_c"]
+
+
+def on_cpu(*tensors) -> bool:
+    """True when the operands lie on the CPU (the plain route); False for
+    CUDA operands (the kernel route); raises on anything else."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return True
+    if devices == {"cuda"}:
+        return False
+    raise ValueError(f"kernel operands on devices {sorted(devices)}: all "
+                     "must be on the CPU or all on one CUDA device")
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
+                  shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` whose
+    shape matches ``shape`` (``None`` entries match any size) with a
+    16-byte-aligned start."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: start is not 16-byte aligned")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def raise_on_error(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: launch failed with cudaError_t {rc}")
+
+
+def bind_c(fn, n_pointers: int, n_ints: int):
+    """Declare a C entry point taking pointers, then ints, then a stream."""
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

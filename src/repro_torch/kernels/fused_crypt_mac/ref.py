@@ -1,0 +1,47 @@
+"""Plain PyTorch versions of the fused crypt + NH kernels."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import mac
+from repro_torch.core.bytesutil import u32
+
+__all__ = ["otp_xor_ref", "fused_crypt_mac_ref", "fused_crypt_mac_write_ref"]
+
+
+def otp_xor_ref(data_lanes: torch.Tensor, base_otp_lanes: torch.Tensor,
+                div_lanes: torch.Tensor) -> torch.Tensor:
+    """(N, 4S) ^ (base (N, 4) ^ div (S, 4)) per segment (int32 storage)."""
+    n, lanes = data_lanes.shape
+    s = div_lanes.shape[0]
+    pads = base_otp_lanes[:, None, :] ^ div_lanes[None, :, :]
+    return (data_lanes.reshape(n, s, 4) ^ pads).reshape(n, lanes)
+
+
+def _nh_pairs(lanes: torch.Tensor, bind_words: torch.Tensor,
+              key_u32: torch.Tensor) -> torch.Tensor:
+    hi, lo = mac.nh_hash(torch.cat([lanes, bind_words], dim=-1), key_u32)
+    return u32(torch.stack([hi, lo], dim=-1))
+
+
+def fused_crypt_mac_ref(ct_lanes: torch.Tensor, base_otp_lanes: torch.Tensor,
+                        div_lanes: torch.Tensor, bind_words: torch.Tensor,
+                        key_u32: torch.Tensor):
+    """Decrypt wide blocks AND hash them (over the ciphertext).
+
+    ct (N, 4S), base (N, 4), div (S, 4), bind (N, 8), key (4S + 8,), all
+    u32 in int32 storage.  Returns (plaintext lanes (N, 4S), NH (N, 2)).
+    """
+    pt = otp_xor_ref(ct_lanes, base_otp_lanes, div_lanes)
+    return pt, _nh_pairs(ct_lanes, bind_words, key_u32)
+
+
+def fused_crypt_mac_write_ref(pt_lanes: torch.Tensor,
+                              base_otp_lanes: torch.Tensor,
+                              div_lanes: torch.Tensor,
+                              bind_words: torch.Tensor,
+                              key_u32: torch.Tensor):
+    """Encrypt, then hash the FRESH ciphertext (same shapes as the read)."""
+    ct = otp_xor_ref(pt_lanes, base_otp_lanes, div_lanes)
+    return ct, _nh_pairs(ct, bind_words, key_u32)
