@@ -7,9 +7,10 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
 1. setup   — needs a CUDA device; prints the card's name and power limit
              (``nvidia-smi``) and builds every kernel from ``csrc/``.
 2. kernels — each CUDA kernel against its plain PyTorch version on the
-             card at the serve phase's shapes (bytes equal; the fused pair
-             also at S = 11), with median times over 25 launches and the
-             card's least time for the same work.
+             card at the serve and tenants phases' shapes (bytes equal;
+             the fused kernels also at S = 11; the mixed-key ones over a
+             12-row key bank with rows mixed), with median times over 25
+             launches and the card's least time for the same work.
 3. reference — the smoke config (float32) served by the engine under
              ``seda`` with the kernels gives the tokens of a plain
              prefill + decode loop.
@@ -21,11 +22,26 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              under ``use_kernel=False`` and under ``off`` must give the
              same tokens.  The three configs run in turns, twice each.
 5. profile — where a steady decode tick's time goes (CUPTI trace):
-             device busy time, idle share, the crypto kernels' share.
+             device busy time, idle share, the crypto kernels' share;
+             single-tenant seda, off, and the tenants phase's config.
 6. tamper  — one flipped ciphertext byte of a live page makes the next
              ``step()`` raise ``IntegrityError``.
+7. tenants — the serve phase's weights and requests through a
+             ``TenantRegistry`` of 4 tenants (sessions round-robin, one
+             rotation every tick, so reseals fire): seda with and without
+             the kernels, in turns.  Tokens must equal the serve phase's;
+             every tick must run the mixed-key kernels, whose launch
+             counts must be > 0.
+8. tenant_tamper — tenant B's slot given tenant A's pages: the next
+             ``step()`` raises ``IntegrityError``.
+9. launch  — the port's launcher (``repro_torch.launch.serve.main``) at
+             full width with 4 tenants and a rotation every tick, after
+             the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
+             the deferred pool MAC OK.
 
-Then a ``{"kernels": [...]}`` line and, last, the device line.
+Each path whose launches are reported (serve, tenants) is driven with
+the counts set to 0 just before it and read just after.  Then a
+``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -58,6 +74,10 @@ AES_OPS_PER_BLOCK = 1056   # 9 rounds x 16 B x 7 + final 16 x 2 + first ARK 16
 
 SERVE = dict(n_requests=8, prompt_len=64, new_tokens=16, page_tokens=8)
 PAGES_PER_SLOT = 10        # 64 + 16 tokens = 10 pages of 8
+N_TENANTS = 4              # the tenants phase: K = 4 x (retain 2 + 1) rows
+SINGLE_KEY = ("aes_ctr_keystream", "fused_crypt_mac", "fused_crypt_mac_write")
+MIXED_KEY = ("aes_ctr_keystream_multi", "fused_crypt_mac_mixed",
+             "fused_crypt_mac_write_mixed")
 
 
 def emit(obj) -> None:
@@ -223,9 +243,97 @@ def phase_kernels(cfg, results: dict) -> dict:
             call_ms=median_ms(lambda: fn(*timed)),
             plain_ms=median_ms(lambda: ref(*timed), n=20),
             bound_ms=b_ms, bound_by=b_by)
+    out.update(_mixed_kernels(dev, shapes, u32, err))
     results.update(out)
     return {k: {kk: (round(vv, 6) if isinstance(vv, float) else vv)
                 for kk, vv in v.items()} for k, v in out.items()}
+
+
+def _tenant_registry(device, rotate: int = 0):
+    """4 tenants over ``KeyHierarchy(0)`` (a K = 12 row bank), with
+    ``rotate`` rotations of tenant 1 so both of its epoch rows hold keys."""
+    from repro_torch.tenancy import KeyHierarchy, TenantRegistry
+    reg = TenantRegistry(KeyHierarchy(0, device=device),
+                         max_tenants=N_TENANTS)
+    for t in range(N_TENANTS):
+        reg.register(f"tenant-{t}")
+    for _ in range(rotate):
+        reg.rotate("tenant-1")
+    return reg
+
+
+def _mixed_kernels(dev, shapes, u32, err) -> dict:
+    """Queue B 4-6 against their plain versions over a 12-row bank with
+    rows drawn at random per block."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.aes_ctr import kernel as aes_k
+    from repro_torch.kernels.aes_ctr import ref as aes_ref
+    from repro_torch.kernels.fused_crypt_mac import kernel as fused_k
+    from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
+    from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
+
+    bank = _tenant_registry(dev, rotate=1).bank
+    k = bank.key.shape[0]
+    rng = np.random.default_rng(3)
+
+    def rows(n):
+        return torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(dev)
+
+    out = {}
+    n = shapes["read"]
+    counters, r = u32((n, 4)), rows(n)
+    got = aes_k.aes_ctr_keystream_multi(counters, bank.round_keys, r)
+    torch.cuda.synchronize()
+    e = err(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+        counters, bank.round_keys, r))
+    if e:
+        raise AssertionError(f"aes_ctr_keystream_multi differs from plain: "
+                             f"{e}")
+    # Counters in, a row per block, lanes out; the bank once.
+    b_ms, b_by = bound(n * 36 + 176 * k + 256, n * AES_OPS_PER_BLOCK)
+    call = lambda: aes_k.aes_ctr_keystream_multi(counters, bank.round_keys, r)
+    ms, timing = kernel_ms(call, "aes_ctr_keystream_multi_kernel")
+    out["aes_ctr_keystream_multi"] = dict(
+        n=n, k=k, max_abs_err=e, ms=ms, timing=timing,
+        call_ms=median_ms(call),
+        plain_ms=median_ms(lambda: aes_ref.aes_ctr_keystream_multi_lanes_ref(
+            counters, bank.round_keys, r), n=20),
+        bound_ms=b_ms, bound_by=b_by)
+
+    for name, fn, ref, n in (
+            ("fused_crypt_mac_mixed", fused_k.fused_crypt_mac_mixed,
+             fused_ref.fused_crypt_mac_mixed_ref, shapes["read"]),
+            ("fused_crypt_mac_write_mixed", fused_k.fused_crypt_mac_write_mixed,
+             fused_ref.fused_crypt_mac_write_mixed_ref, shapes["write"])):
+        worst = 0
+        for s in (4, 11):
+            args = (u32((n, 4 * s)), u32((n, 4)),
+                    fused_ops._div_bank(bank.round_keys, s), u32((n, 8)),
+                    bank.hash_key[:, : 4 * s + 8].contiguous(), rows(n))
+            got_out, got_nh = fn(*args)
+            torch.cuda.synchronize()
+            want_out, want_nh = ref(*args)
+            worst = max(worst, err(got_out, want_out), err(got_nh, want_nh))
+            if worst:
+                raise AssertionError(f"{name} (S={s}) differs from plain: "
+                                     f"{worst}")
+            if s == 4:
+                timed = args
+        s = 4
+        # ct + base + bind + row in, out + nh out, per block; both banks once.
+        moved = (n * (16 * s + 16 + 32 + 4 + 16 * s + 8)
+                 + fused_k.mixed_shared_bytes(k, s))
+        b_ms, b_by = bound(moved, n * (16 * s + 16))
+        ms, timing = kernel_ms(lambda: fn(*timed),
+                               "fused_crypt_mac_mixed_kernel")
+        out[name] = dict(
+            n=n, k=k, max_abs_err=worst, ms=ms, timing=timing,
+            call_ms=median_ms(lambda: fn(*timed)),
+            plain_ms=median_ms(lambda: ref(*timed), n=20),
+            bound_ms=b_ms, bound_by=b_by)
+    return out
 
 
 def _dense_tokens(cfg, params, prompt: list, n_new: int, max_len: int):
@@ -300,17 +408,33 @@ def _full_params(cfg):
     return params
 
 
-def _serve_once(arch, cfg, params, prompts, scheme, use_kernel):
-    import torch
-
-    from repro_torch.kernels import LAUNCHES, reset_launches
+def _engine(arch, cfg, params, prompts, scheme, use_kernel,
+            tenants: bool = False):
+    """The serve phase's engine with ``prompts`` submitted; with
+    ``tenants``, over a 4-tenant registry (sessions round-robin) that
+    rotates one tenant every tick."""
     from repro_torch.serve.engine import SecureServingEngine
+    registry = _tenant_registry("cuda") if tenants else None
     eng = SecureServingEngine(
         arch, cfg, params, scheme=scheme, use_kernel=use_kernel,
         max_slots=SERVE["n_requests"], page_tokens=SERVE["page_tokens"],
-        pages_per_slot=PAGES_PER_SLOT)
-    rids = [eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"])
-            for p in prompts]
+        pages_per_slot=PAGES_PER_SLOT, registry=registry,
+        rotate_every=1 if tenants else 0)
+    sessions = ([registry.open_session(f"tenant-{t}")
+                 for t in range(N_TENANTS)] if tenants else [None])
+    rids = [eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"],
+                       session=sessions[i % len(sessions)])
+            for i, p in enumerate(prompts)]
+    return eng, rids
+
+
+def _serve_once(arch, cfg, params, prompts, scheme, use_kernel,
+                tenants: bool = False):
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    eng, rids = _engine(arch, cfg, params, prompts, scheme, use_kernel,
+                        tenants)
     torch.cuda.synchronize()
     reset_launches()                       # main path starts here
     t0 = time.perf_counter()
@@ -321,7 +445,8 @@ def _serve_once(arch, cfg, params, prompts, scheme, use_kernel):
     tokens = [done[r].generated for r in rids]
     n_tok = sum(len(t) for t in tokens)
     return eng, tokens, {
-        "scheme": scheme, "use_kernel": use_kernel, "wall_s": wall,
+        "scheme": scheme, "use_kernel": use_kernel, "tenants": tenants,
+        "wall_s": wall, "deferred_mac_ok": eng.deferred_check(),
         "tokens": n_tok, "tok_per_s": n_tok / wall, "ticks": eng.tick,
         "stats": dict(eng.stats), "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -356,7 +481,7 @@ def phase_serve(arch, cfg, results: dict) -> dict:
         del eng
         torch.cuda.empty_cache()
     main = runs["seda_kernel"][0]
-    zero = [k for k, v in main["launches"].items() if v <= 0]
+    zero = [k for k in SINGLE_KEY if main["launches"][k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
@@ -372,6 +497,7 @@ def phase_serve(arch, cfg, results: dict) -> dict:
     results["launches"] = main["launches"]
     results["params"] = params
     results["prompts"] = prompts
+    results["serve_tokens"] = tokens["seda_kernel"]
     return {"config": cfg.name, "n_params": n_params,
             "distinct_tokens": len(set(flat)),
             "main_path": {k: main[k] for k in ("launches", "stats", "ticks")},
@@ -384,19 +510,14 @@ def phase_serve(arch, cfg, results: dict) -> dict:
 
 
 def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
-                   n_ticks: int = 3) -> dict:
+                   tenants: bool = False, n_ticks: int = 3) -> dict:
     """Device busy time and the top kernels over ``n_ticks`` steady
-    decode ticks (all 8 requests running), from a CUPTI trace."""
+    decode ticks (all 8 requests running), from a CUPTI trace.  With
+    ``tenants`` each tick also rotates a tenant and reseals its pages."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import SecureServingEngine
-    eng = SecureServingEngine(
-        arch, cfg, params, scheme=scheme, use_kernel=use_kernel,
-        max_slots=SERVE["n_requests"], page_tokens=SERVE["page_tokens"],
-        pages_per_slot=PAGES_PER_SLOT)
-    for p in prompts:
-        eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"])
+    eng, _ = _engine(arch, cfg, params, prompts, scheme, use_kernel, tenants)
     for _ in range(2):                     # admission + one warm tick
         eng.step()
     torch.cuda.synchronize()
@@ -418,8 +539,8 @@ def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
                            + e.device_time_total / 1e3)
     busy = sum(by_name.values()) / n_ticks
     crypto = sum(v for k, v in by_name.items()
-                 if "aes_ctr_keystream_kernel" in k
-                 or "fused_crypt_mac_kernel" in k) / n_ticks
+                 if "aes_ctr_keystream" in k or "fused_crypt_mac" in k
+                 ) / n_ticks
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"tick_ms": plain_wall * 1e3, "profiled_tick_ms": wall * 1e3,
             "device_busy_ms": busy, "crypto_kernel_ms": crypto,
@@ -430,10 +551,12 @@ def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
 
 def phase_profile(arch, cfg, results: dict) -> dict:
     out = {}
-    for key, scheme, use_kernel in (("seda_kernel", "seda", True),
-                                    ("off", "off", False)):
+    for key, scheme, use_kernel, tenants in (
+            ("seda_kernel", "seda", True, False), ("off", "off", False, False),
+            ("seda_kernel_4_tenants", "seda", True, True)):
         out[key] = _profile_ticks(arch, cfg, results["params"],
-                                  results["prompts"], scheme, use_kernel)
+                                  results["prompts"], scheme, use_kernel,
+                                  tenants)
     return out
 
 
@@ -476,6 +599,95 @@ def phase_tamper(arch, cfg, params) -> dict:
     raise AssertionError("a flipped ciphertext byte was not detected")
 
 
+def phase_tenants(arch, cfg, results: dict) -> dict:
+    import torch
+    params, prompts = results["params"], results["prompts"]
+    order = [("kernel", True), ("plain", False)]
+    runs: dict = {key: [] for key, _ in order}
+    tokens: dict = {}
+    for key, use_kernel in order + order[::-1]:
+        eng, toks, run = _serve_once(arch, cfg, params, prompts, "seda",
+                                     use_kernel, tenants=True)
+        if tokens.setdefault(key, toks) != toks:
+            raise AssertionError(f"{key}: tokens differ between two runs")
+        runs[key].append(run)
+        del eng
+        torch.cuda.empty_cache()
+    main = runs["kernel"][0]               # the tenants path's launches
+    stats = main["stats"]
+    zero = [k for k in MIXED_KEY if main["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"mixed-key kernels never launched: {zero}")
+    if not (tokens["kernel"] == tokens["plain"] == results["serve_tokens"]):
+        raise AssertionError("tenant tokens differ between kernels on, "
+                             "kernels off and the single-tenant serve")
+    if stats["fused_mixed_ticks"] != stats["decode_steps"] or \
+            stats["uniform_fast_ticks"] != 0:
+        raise AssertionError(f"not every decode tick was mixed: {stats}")
+    if stats["rotations"] <= 0 or stats["reseals"] <= 0:
+        raise AssertionError(f"no rotation or no reseal: {stats}")
+    if not all(r["deferred_mac_ok"] for v in runs.values() for r in v):
+        raise AssertionError("deferred pool MAC failed")
+    results["tenant_launches"] = main["launches"]
+    return {"tenants": N_TENANTS, "rotate_every": 1,
+            "main_path": {k: main[k] for k in ("launches", "stats", "ticks")},
+            "tok_per_s": {k: [r["tok_per_s"] for r in v]
+                          for k, v in runs.items()},
+            "wall_s": {k: [r["wall_s"] for r in v] for k, v in runs.items()},
+            "peak_mem_gb": max(r["peak_mem_gb"] for v in runs.values()
+                               for r in v)}
+
+
+def phase_tenant_tamper(arch, cfg, params) -> dict:
+    """Tenant B's slot reads tenant A's pages: the next tick must fail."""
+    import numpy as np
+
+    from repro_torch.serve.engine import IntegrityError
+    rng = np.random.default_rng(4)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, 20)))
+               for _ in range(2)]
+    eng, rids = _engine(arch, cfg, params, prompts, "seda", True,
+                        tenants=True)
+    eng.step()
+    a = next(s for s in eng.slots if s and s.req.rid == rids[0])
+    b = next(s for s in eng.slots if s and s.req.rid == rids[1])
+    if a.tenant is b.tenant:
+        raise AssertionError("the two requests share a tenant")
+    b.pages, b.page_epochs = list(a.pages), list(a.page_epochs)
+    try:
+        eng.step()
+    except IntegrityError as e:
+        return {"tenants": [a.tenant.tenant_id, b.tenant.tenant_id],
+                "raised": type(e).__name__, "message": str(e)}
+    raise AssertionError("a cross-tenant page read was not detected")
+
+
+def phase_launch(results: dict) -> dict:
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve as launch
+    results.pop("params", None)            # free the earlier model
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "minitron-4b", "--engine", "paged", "--scheme", "seda",
+            "--batch", str(SERVE["n_requests"]),
+            "--prompt-len", str(SERVE["prompt_len"]),
+            "--gen-len", str(SERVE["new_tokens"]),
+            "--tenants", str(N_TENANTS), "--rotate-every", "1"]
+    out = launch.main(argv)
+    shape = tuple(out["tokens"].shape)
+    if shape != (SERVE["n_requests"], SERVE["new_tokens"]):
+        raise AssertionError(f"launcher served tokens of shape {shape}")
+    if out["stats"]["fused_mixed_ticks"] <= 0 or not out["deferred_mac_ok"]:
+        raise AssertionError(f"launcher run: {out['stats']}, deferred MAC "
+                             f"{out['deferred_mac_ok']}")
+    return {"argv": argv, "tokens_shape": shape,
+            "tok_per_s": out["tok_per_s"], "stats": out["stats"],
+            "latency": out["latency"]}
+
+
 KERNEL_META = {
     "aes_ctr_keystream": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
                           "src/repro/kernels/aes_ctr/kernel.py:178"),
@@ -484,7 +696,17 @@ KERNEL_META = {
     "fused_crypt_mac_write": (
         "src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
         "src/repro/kernels/fused_crypt_mac/kernel.py:284"),
+    "aes_ctr_keystream_multi": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
+                                "src/repro/kernels/aes_ctr/kernel.py:144"),
+    "fused_crypt_mac_mixed": (
+        "src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
+        "src/repro/kernels/fused_crypt_mac/kernel.py:207"),
+    "fused_crypt_mac_write_mixed": (
+        "src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
+        "src/repro/kernels/fused_crypt_mac/kernel.py:221"),
 }
+# The path each kernel's launch count is read from.
+LAUNCHES_FROM = {name: "tenant_launches" for name in MIXED_KEY}
 
 
 def main() -> int:
@@ -505,6 +727,10 @@ def main() -> int:
         ("serve", lambda: phase_serve(arch, cfg, results)),
         ("profile", lambda: phase_profile(arch, cfg, results)),
         ("tamper", lambda: phase_tamper(arch, cfg, results["params"])),
+        ("tenants", lambda: phase_tenants(arch, cfg, results)),
+        ("tenant_tamper",
+         lambda: phase_tenant_tamper(arch, cfg, results["params"])),
+        ("launch", lambda: phase_launch(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -521,7 +747,8 @@ def main() -> int:
         k = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": results["launches"][name],
+            "replaces": replaces,
+            "launches": results[LAUNCHES_FROM.get(name, "launches")][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})

@@ -7,6 +7,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import aes
 
 __all__ = ["SecureKeys"]
@@ -19,12 +20,14 @@ class SecureKeys(NamedTuple):
 
     @staticmethod
     def derive(seed: int, *, nh_lanes: int = 2048,
-               device="cpu") -> "SecureKeys":
+               device=None) -> "SecureKeys":
         """Derive session keys from a seed with numpy's generator, so the
         same seed gives the reference package's bytes exactly.
 
         ``nh_lanes`` bounds the optBlk size: block_bytes/4 + 8 lanes.
+        The keys land on ``device``: the card unless ``"cpu"``.
         """
+        device = resolve_device(device)
         rng = np.random.default_rng(np.uint32(seed) if np.isscalar(seed)
                                     else None)
         key_np = rng.integers(0, 256, size=16, dtype=np.uint8)

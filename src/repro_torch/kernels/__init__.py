@@ -5,6 +5,13 @@ Each kernel module keeps a plain PyTorch version beside the kernel
 CUDA tensors it launches its kernel or raises — there is no fallback.
 Every launch adds one to :data:`LAUNCHES` under the kernel's name, so a
 run can show that its main path went through the kernels.
+
+The mixed-key kernels take a key bank and one int32 bank row per block.
+The wrappers check the rows' type and shape, not their values (a device
+range check would cost a host sync per call):
+:meth:`repro_torch.serve.kv_pages.PageKeyCtx.make` refuses rows outside
+the bank on the host, and the kernels clamp a row into ``[0, K)`` before
+they touch shared memory.
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ LAUNCHES = {
     "aes_ctr_keystream": 0,
     "fused_crypt_mac": 0,
     "fused_crypt_mac_write": 0,
+    "aes_ctr_keystream_multi": 0,
+    "fused_crypt_mac_mixed": 0,
+    "fused_crypt_mac_write_mixed": 0,
 }
 
 

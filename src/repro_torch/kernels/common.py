@@ -6,8 +6,13 @@ import ctypes
 
 import torch
 
-__all__ = ["check_operand", "on_cpu", "stream_handle", "raise_on_error",
-           "bind_c"]
+__all__ = ["check_operand", "check_shared_bytes", "on_cpu", "stream_handle",
+           "raise_on_error", "bind_c", "MAX_SHARED_BYTES"]
+
+# Shared memory one thread block may use on Hopper (227 KB of the SM's
+# 256 KB; above 48 KB only as dynamic shared memory, which the C entry
+# points opt into).
+MAX_SHARED_BYTES = 232448
 
 
 def on_cpu(*tensors) -> bool:
@@ -40,6 +45,17 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: start is not 16-byte aligned")
+
+
+def check_shared_bytes(kernel: str, n_bytes: int, k: int) -> None:
+    """Raise when a bank of ``k`` rows needs more shared memory than a
+    thread block has: the kernel would not launch."""
+    if n_bytes > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{kernel}: a key bank of {k} rows needs {n_bytes} bytes of "
+            f"shared memory per thread block; Hopper allows "
+            f"{MAX_SHARED_BYTES}.  Use fewer tenants or a smaller retain "
+            f"window, or split the call by bank row")
 
 
 def stream_handle() -> int:

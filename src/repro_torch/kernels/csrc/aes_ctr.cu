@@ -1,8 +1,21 @@
 // AES-128-CTR keystream for SeDA's counter blocks, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/aes_ctr/kernel.py::aes_ctr_keystream
-// (body _aes_ctr_kernel): AES-128 of (N, 4) u32 counter words under one
-// (11, 16) key schedule, giving (N, 4) u32 one-time-pad lanes.
+// Replaces the TPU kernels in repro/kernels/aes_ctr/kernel.py:
+//   aes_ctr_keystream        (body _aes_ctr_kernel): AES-128 of (N, 4) u32
+//                            counter words under one (11, 16) key schedule,
+//                            giving (N, 4) u32 one-time-pad lanes;
+//   aes_ctr_keystream_multi  (body _aes_ctr_kernel_multi): the same, but
+//                            each block under its own schedule.  The TPU
+//                            kernel takes a per-block (N, 11, 16) table
+//                            gathered from the key bank; here the kernel
+//                            takes the bank itself, (K, 11, 16), and one
+//                            int32 row per block, and stages the whole
+//                            bank in shared memory (K * 176 bytes, 2 KB
+//                            at K = 12) once per thread block.  That keeps
+//                            the mixed keystream bound by operations, as
+//                            the single-key one is: a per-block table read
+//                            from device memory would add 176 bytes a
+//                            block and make it bound by bytes.
 //
 // Byte orders follow the TPU kernel exactly: each counter word is unpacked
 // big-endian into the 16-byte state (_unpack_counter_bytes) and the output
@@ -30,20 +43,10 @@ __device__ __forceinline__ uint32_t xtime(uint32_t x) {
   return ((x << 1) ^ ((x >> 7) * 0x1Bu)) & 0xFFu;
 }
 
-__global__ void aes_ctr_keystream_kernel(const uint4* __restrict__ counters,
-                                         const uint8_t* __restrict__ round_keys,
-                                         const uint8_t* __restrict__ sbox_g,
-                                         uint4* __restrict__ out, int n) {
-  __shared__ uint8_t sbox[256];
-  __shared__ uint8_t rk[176];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) sbox[i] = sbox_g[i];
-  for (int i = threadIdx.x; i < 176; i += blockDim.x) rk[i] = round_keys[i];
-  __syncthreads();
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-
-  const uint4 c = counters[idx];
+// One counter block through AES-128 under the schedule rk (176 bytes),
+// with the S-box and schedule in shared memory.
+__device__ __forceinline__ uint4 aes_block(const uint4 c, const uint8_t* rk,
+                                           const uint8_t* sbox) {
   const uint32_t w[4] = {c.x, c.y, c.z, c.w};
   uint32_t s[16];
 #pragma unroll
@@ -91,7 +94,42 @@ __global__ void aes_ctr_keystream_kernel(const uint4* __restrict__ counters,
     }
     lanes[j] = lane;
   }
-  out[idx] = make_uint4(lanes[0], lanes[1], lanes[2], lanes[3]);
+  return make_uint4(lanes[0], lanes[1], lanes[2], lanes[3]);
+}
+
+__global__ void aes_ctr_keystream_kernel(const uint4* __restrict__ counters,
+                                         const uint8_t* __restrict__ round_keys,
+                                         const uint8_t* __restrict__ sbox_g,
+                                         uint4* __restrict__ out, int n) {
+  __shared__ uint8_t sbox[256];
+  __shared__ uint8_t rk[176];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) sbox[i] = sbox_g[i];
+  for (int i = threadIdx.x; i < 176; i += blockDim.x) rk[i] = round_keys[i];
+  __syncthreads();
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  out[idx] = aes_block(counters[idx], rk, sbox);
+}
+
+// Dynamic shared memory: the S-box (256 B), then the K schedules.
+__global__ void aes_ctr_keystream_multi_kernel(
+    const uint4* __restrict__ counters, const uint8_t* __restrict__ bank_g,
+    const int* __restrict__ rows, const uint8_t* __restrict__ sbox_g,
+    uint4* __restrict__ out, int n, int k) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sbox = smem;
+  uint8_t* bank = smem + 256;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) sbox[i] = sbox_g[i];
+  for (int i = threadIdx.x; i < 176 * k; i += blockDim.x) bank[i] = bank_g[i];
+  __syncthreads();
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  // Rows outside the bank are refused on the host; clamp so a bad row
+  // can never read outside shared memory.
+  const int r = min(max(rows[idx], 0), k - 1);
+  out[idx] = aes_block(counters[idx], bank + 176 * r, sbox);
 }
 
 }  // namespace
@@ -110,5 +148,29 @@ extern "C" int aes_ctr_keystream(const void* counters, const void* round_keys,
       static_cast<const uint4*>(counters),
       static_cast<const uint8_t*>(round_keys),
       static_cast<const uint8_t*>(sbox), static_cast<uint4*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counters: (n, 4) u32, bank: (k, 11, 16) u8, rows: (n,) int32,
+// sbox: (256,) u8, out: (n, 4) u32.  Returns cudaError_t (0 on success).
+extern "C" int aes_ctr_keystream_multi(const void* counters, const void* bank,
+                                       const void* rows, const void* sbox,
+                                       void* out, int n, int k, void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  const size_t smem = 256 + 176 * static_cast<size_t>(k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        aes_ctr_keystream_multi_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  aes_ctr_keystream_multi_kernel<<<blocks, threads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(counters), static_cast<const uint8_t*>(bank),
+      static_cast<const int*>(rows), static_cast<const uint8_t*>(sbox),
+      static_cast<uint4*>(out), n, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,7 +41,7 @@ def _np_u32(t: torch.Tensor) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def keys():
-    return JKeys.derive(1234), SecureKeys.derive(1234)
+    return JKeys.derive(1234), SecureKeys.derive(1234, device="cpu")
 
 
 def test_fips197_appendix_c1():
@@ -68,7 +68,7 @@ def test_aes_random_blocks(keys):
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5])
 def test_secure_keys_derive(seed):
-    jk, tk = JKeys.derive(seed), SecureKeys.derive(seed)
+    jk, tk = JKeys.derive(seed), SecureKeys.derive(seed, device="cpu")
     assert (tk.key.numpy() == np.asarray(jk.key)).all()
     assert (tk.round_keys.numpy() == np.asarray(jk.round_keys)).all()
     assert (_np_u32(tk.hash_key) == np.asarray(jk.hash_key)).all()

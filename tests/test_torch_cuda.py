@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
+Rows of the mixed-key kernels are drawn over a (K, ...) key bank at
+edge sizes; a bank too large for a thread block's shared memory and bad
+operands must raise.
+
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
 
@@ -18,6 +22,7 @@ from repro_torch.kernels.aes_ctr import ref as aes_ref
 from repro_torch.kernels.fused_crypt_mac import kernel as fused
 from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
 from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
+from repro_torch.tenancy import KeyHierarchy, TenantRegistry
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +97,140 @@ def test_kernel_refuses_bad_operands(card):
     lanes = torch.zeros((8, 8), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
         aes_k.aes_ctr_keystream(lanes[:, ::2], keys.round_keys)
+
+
+def _bank(card, k: int):
+    """A (K, ...) key bank: the rows of a registry with K rows (K = 1:
+    one tenant at retain 1 is not allowed, so take row 0 of a larger
+    one)."""
+    reg = TenantRegistry(KeyHierarchy(11, device=card), max_tenants=4)
+    for t in range(4):
+        reg.register(f"t{t}")
+    reg.rotate("t1")
+    bank = reg.bank
+    if k == 1:
+        return tuple(t[:1].contiguous() for t in bank)
+    assert bank.key.shape[0] == k
+    return tuple(bank)
+
+
+def _rows(rng, n, k, card, mixed: bool) -> torch.Tensor:
+    rows = (rng.integers(0, k, n) if mixed else np.full(n, k - 1))
+    return torch.from_numpy(rows.astype(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("n", [1, 257, 4099])
+@pytest.mark.parametrize("k", [1, 12])
+def test_keystream_multi_equals_plain(card, n, k):
+    _, round_keys, _, _ = _bank(card, k)
+    rng = np.random.default_rng(n + k)
+    words = _u32(rng, (n, 4), card)
+    rows = _rows(rng, n, k, card, mixed=True)
+    reset_launches()
+    got = aes_k.aes_ctr_keystream_multi(words, round_keys, rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["aes_ctr_keystream_multi"] == 1
+    assert torch.equal(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+        words, round_keys, rows))
+
+
+@pytest.mark.parametrize("n", [1, 257, 4099])
+@pytest.mark.parametrize("s", [1, 4, 11])
+@pytest.mark.parametrize("k", [1, 12])
+@pytest.mark.parametrize("write", [False, True])
+def test_fused_mixed_equals_plain(card, n, s, k, write):
+    _, round_keys, hash_key, _ = _bank(card, k)
+    rng = np.random.default_rng(n * s + k)
+    args = (_u32(rng, (n, 4 * s), card), _u32(rng, (n, 4), card),
+            fused_ops._div_bank(round_keys, s), _u32(rng, (n, 8), card),
+            hash_key[:, : 4 * s + 8].contiguous(),
+            _rows(rng, n, k, card, mixed=n > 1))
+    kernel = (fused.fused_crypt_mac_write_mixed if write
+              else fused.fused_crypt_mac_mixed)
+    ref = (fused_ref.fused_crypt_mac_write_mixed_ref if write
+           else fused_ref.fused_crypt_mac_mixed_ref)
+    out, nh = kernel(*args)
+    torch.cuda.synchronize()
+    ref_out, ref_nh = ref(*args)
+    assert torch.equal(out, ref_out) and torch.equal(nh, ref_nh)
+
+
+@pytest.mark.parametrize("write", [False, True])
+def test_large_bank_above_48kb_equals_plain(card, write):
+    """400 rows need more than the 48 KB of default shared memory: the
+    C entry points opt in to the larger dynamic size."""
+    n, s, k = 4099, 4, 400
+    rng = np.random.default_rng(40 + write)
+    round_keys = torch.from_numpy(
+        rng.integers(0, 256, (k, 11, 16), dtype=np.uint8)).to(card)
+    hash_key = _u32(rng, (k, 4 * s + 8), card)
+    rows = _rows(rng, n, k, card, mixed=True)
+    words = _u32(rng, (n, 4), card)
+    got = aes_k.aes_ctr_keystream_multi(words, round_keys, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+        words, round_keys, rows))
+    args = (_u32(rng, (n, 4 * s), card), _u32(rng, (n, 4), card),
+            fused_ops._div_bank(round_keys, s), _u32(rng, (n, 8), card),
+            hash_key, rows)
+    kernel = (fused.fused_crypt_mac_write_mixed if write
+              else fused.fused_crypt_mac_mixed)
+    ref = (fused_ref.fused_crypt_mac_write_mixed_ref if write
+           else fused_ref.fused_crypt_mac_mixed_ref)
+    out, nh = kernel(*args)
+    torch.cuda.synchronize()
+    ref_out, ref_nh = ref(*args)
+    assert torch.equal(out, ref_out) and torch.equal(nh, ref_nh)
+
+
+@pytest.mark.parametrize("write", [False, True])
+def test_secure_crossing_mixed_kernel_equals_cpu(card, write):
+    rng = np.random.default_rng(8)
+    n = 300
+    data = rng.integers(0, 256, n * 64, dtype=np.uint8)
+    words = rng.integers(0, 2 ** 32, (n, 4)).astype(np.int64)
+    fields = [rng.integers(0, 2 ** 32, n).astype(np.int64) for _ in range(5)]
+    rows = rng.integers(0, 12, n).astype(np.int32)
+    fn = (fused_ops.secure_write_kernel_mixed if write
+          else fused_ops.secure_read_kernel_mixed)
+    outs = []
+    for dev in ("cpu", card):
+        _, round_keys, hash_key, _ = _bank(dev, 12)
+        binding = mac.Binding.make(*(torch.from_numpy(f).to(dev)
+                                     for f in fields))
+        outs.append(fn(torch.from_numpy(data).to(dev), binding, round_keys,
+                       torch.from_numpy(words).to(dev), hash_key,
+                       torch.from_numpy(rows).to(dev), block_bytes=64))
+    assert torch.equal(outs[0][0], outs[1][0].cpu())
+    assert torch.equal(outs[0][1], outs[1][1].cpu())
+
+
+def test_mixed_kernels_refuse_large_bank_and_bad_operands(card):
+    n, s, k = 64, 4, 2000            # 2000 rows: > 227 KB of shared memory
+    rng = np.random.default_rng(9)
+    words = _u32(rng, (n, 4), card)
+    rows = torch.zeros((n,), dtype=torch.int32, device=card)
+    big_rk = torch.zeros((k, 11, 16), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        aes_k.aes_ctr_keystream_multi(words, big_rk, rows)
+    args = [_u32(rng, (n, 4 * s), card), _u32(rng, (n, 4), card),
+            torch.zeros((k, s, 4), dtype=torch.int32, device=card),
+            _u32(rng, (n, 8), card),
+            torch.zeros((k, 4 * s + 8), dtype=torch.int32, device=card), rows]
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.fused_crypt_mac_mixed(*args)
+    _, round_keys, hash_key, _ = _bank(card, 12)
+    args[2] = fused_ops._div_bank(round_keys, s)
+    args[4] = hash_key[:, : 4 * s + 8].contiguous()
+    with pytest.raises(TypeError):                   # int64 rows
+        fused.fused_crypt_mac_write_mixed(*args[:5], rows.long())
+    with pytest.raises(ValueError):                  # one row short
+        fused.fused_crypt_mac_mixed(*args[:5], rows[:-1])
+    with pytest.raises(ValueError):                  # key rows of another S
+        fused.fused_crypt_mac_mixed(*args[:4], hash_key[:, :20].contiguous(),
+                                    rows)
+    with pytest.raises(ValueError):                  # rows on the CPU
+        aes_k.aes_ctr_keystream_multi(words, round_keys, rows.cpu())
+    with pytest.raises(ValueError):                  # non-contiguous counters
+        aes_k.aes_ctr_keystream_multi(
+            _u32(rng, (n, 8), card)[:, ::2], round_keys, rows)

@@ -44,7 +44,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def keys():
-    return JKeys.derive(99), SecureKeys.derive(99)
+    return JKeys.derive(99), SecureKeys.derive(99, device="cpu")
 
 
 def test_keystream_matches_jax_kernel_and_ref(keys):

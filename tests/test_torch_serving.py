@@ -86,9 +86,9 @@ def _page_io_sequence(scheme, cfg, j_cfg):
     spec = kvp.build_page_spec(tree, use_kernel=True, **kw)
     assert [tuple(l) for l in spec.leaves] == [tuple(l) for l in j_spec.leaves]
     j_io = j_kvp.PageIO(j_spec, JKeys.derive(5))
-    io = kvp.PageIO(spec, SecureKeys.derive(5))
+    io = kvp.PageIO(spec, SecureKeys.derive(5, device="cpu"))
     leaf_shape = tree[0][0].k.shape                 # (steps, S, L, kv, hd)
-    j_pool, pool = j_kvp.init_pool(j_spec), kvp.init_pool(spec)
+    j_pool, pool = j_kvp.init_pool(j_spec), kvp.init_pool(spec, device="cpu")
 
     def prefill(j_pool, ids, n_write, epoch):
         leaves = [rng.standard_normal((leaf_shape[0], 1) + leaf_shape[2:])
