@@ -7,10 +7,12 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
 1. setup   — needs a CUDA device; prints the card's name and power limit
              (``nvidia-smi``) and builds every kernel from ``csrc/``.
 2. kernels — each CUDA kernel against its plain PyTorch version on the
-             card at the serve and tenants phases' shapes (bytes equal;
-             the fused kernels also at S = 11; the mixed-key ones over a
-             12-row key bank with rows mixed), with median times over 25
-             launches and the card's least time for the same work.
+             card at the serve, tenants and weights phases' shapes (bytes
+             equal; the fused kernels also at S = 11; the mixed-key ones
+             over a 12-row key bank with rows mixed; otp_xor and the NH
+             kernel at the weights' largest leaf in 64 B blocks), with
+             median times over 25 launches and the card's least time for
+             the same work.
 3. reference — the smoke config (float32) served by the engine under
              ``seda`` with the kernels gives the tokens of a plain
              prefill + decode loop.
@@ -34,13 +36,25 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              counts must be > 0.
 8. tenant_tamper — tenant B's slot given tenant A's pages: the next
              ``step()`` raises ``IntegrityError``.
-9. launch  — the port's launcher (``repro_torch.launch.serve.main``) at
+9. weights — the serve phase's full-width params through
+             ``SecureExecutor("seda")``: protect, then unprotect with the
+             layer check, bit-equal and verified (median of 3 each, and
+             one of each under a CUPTI trace); a flipped ciphertext byte
+             and a stale VN (replay) fail the check; the protect runs
+             the AES-CTR, otp_xor and NH kernels.  Then ``seda512`` once
+             (plain wide B-AES, the NH kernel at L = 136).
+10. checkpoint — minitron-4b at full width and 2 layers saved as a
+             secure checkpoint, found by ``latest_step``, loaded and
+             verified bit-equal; the engine serves the same tokens from
+             the restored and the original weights; a flipped byte of a
+             leaf file raises ``CheckpointError``.
+11. launch — the port's launcher (``repro_torch.launch.serve.main``) at
              full width with 4 tenants and a rotation every tick, after
              the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
              the deferred pool MAC OK.
 
-Each path whose launches are reported (serve, tenants) is driven with
-the counts set to 0 just before it and read just after.  Then a
+Each path whose launches are reported (serve, tenants, weights) is
+driven with the counts set to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -75,7 +89,9 @@ AES_OPS_PER_BLOCK = 1056   # 9 rounds x 16 B x 7 + final 16 x 2 + first ARK 16
 SERVE = dict(n_requests=8, prompt_len=64, new_tokens=16, page_tokens=8)
 PAGES_PER_SLOT = 10        # 64 + 16 tokens = 10 pages of 8
 N_TENANTS = 4              # the tenants phase: K = 4 x (retain 2 + 1) rows
+CKPT_LAYERS = 2            # the checkpoint phase's depth (full width)
 SINGLE_KEY = ("aes_ctr_keystream", "fused_crypt_mac", "fused_crypt_mac_write")
+WEIGHTS_KEY = ("aes_ctr_keystream", "otp_xor", "nh_hash_kernel_call")
 MIXED_KEY = ("aes_ctr_keystream_multi", "fused_crypt_mac_mixed",
              "fused_crypt_mac_write_mixed")
 
@@ -155,9 +171,7 @@ def phase_setup() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     paths = build.build()
-    regs = {name: [line.strip() for line in build.ptxas_report(name)
-                   .splitlines() if "registers" in line or "spill" in line]
-            for name in paths}
+    regs = {name: _ptxas(name) for name in paths}
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
             "device": torch.cuda.get_device_name(0),
             "build_s": round(time.perf_counter() - t0, 3),
@@ -195,6 +209,8 @@ def phase_kernels(cfg, results: dict) -> dict:
         return torch.from_numpy(a).to(dev)
 
     def err(a, b) -> int:
+        if torch.equal(a, b):
+            return 0
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     out = {}
@@ -244,6 +260,7 @@ def phase_kernels(cfg, results: dict) -> dict:
             plain_ms=median_ms(lambda: ref(*timed), n=20),
             bound_ms=b_ms, bound_by=b_by)
     out.update(_mixed_kernels(dev, shapes, u32, err))
+    out.update(_weights_kernels(cfg, dev, err))
     results.update(out)
     return {k: {kk: (round(vv, 6) if isinstance(vv, float) else vv)
                 for kk, vv in v.items()} for k, v in out.items()}
@@ -333,6 +350,90 @@ def _mixed_kernels(dev, shapes, u32, err) -> dict:
             call_ms=median_ms(lambda: fn(*timed)),
             plain_ms=median_ms(lambda: ref(*timed), n=20),
             bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def _largest_leaf(cfg) -> tuple:
+    """(path, 64 B blocks) of the largest leaf of the params tree."""
+    from repro_torch.core.bytesutil import TensorSpec
+    from repro_torch.core.layout import tree_flatten_with_path
+    from repro_torch.models import lm
+    path, spec = max(((p, TensorSpec.of(s)) for p, s in
+                      tree_flatten_with_path(lm.lm_specs(cfg))[0]),
+                     key=lambda ps: ps[1].nbytes)
+    return path, -(-spec.nbytes // 64)
+
+
+def _ptxas(name: str) -> list:
+    from repro_torch.kernels import build
+    return [line.strip() for line in build.ptxas_report(name).splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def _weights_kernels(cfg, dev, err) -> dict:
+    """Queue B 7-8 at the weights phase's largest leaf in 64 B blocks
+    (S = 4, L = 24).  otp_xor is compared with its plain version over
+    the whole leaf, the NH kernel over its first 655,360 blocks."""
+    import torch
+
+    from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.kernels.otp_xor import kernel as ox_k
+    from repro_torch.kernels.otp_xor import ops as ox_ops
+    from repro_torch.kernels.otp_xor import ref as ox_ref
+    from repro_torch.kernels.xormac import kernel as xm_k
+    from repro_torch.kernels.xormac import ref as xm_ref
+
+    path, n = _largest_leaf(cfg)
+    keys = SecureKeys.derive(0, device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def u32(*shape) -> torch.Tensor:
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    out = {}
+    s = 4
+    args = (u32(n, 4 * s), u32(n, 4), ox_ops._div_lanes(keys.round_keys, s))
+    got = ox_k.otp_xor(*args)
+    torch.cuda.synchronize()
+    e = err(got, ox_ref.otp_xor_ref(*args))
+    if e:
+        raise AssertionError(f"otp_xor differs from plain: {e}")
+    del got
+    # data + base in, out; the diversifiers once.  Two XORs per lane.
+    b_ms, b_by = bound(n * (16 * s + 16 + 16 * s) + 16 * s, n * 4 * s * 2)
+    call = lambda: ox_k.otp_xor(*args)
+    ms, timing = kernel_ms(call, "otp_xor_kernel")
+    out["otp_xor"] = dict(
+        leaf=path, n=n, s=s, compared_blocks=n, max_abs_err=e, ms=ms,
+        timing=timing, call_ms=median_ms(call),
+        plain_ms=median_ms(lambda: ox_ref.otp_xor_ref(*args), n=10),
+        bound_ms=b_ms, bound_by=b_by, ptxas=_ptxas("otp_xor"))
+    del args, call
+    torch.cuda.empty_cache()
+
+    lanes = 4 * s + 8
+    payload, key = u32(n, lanes), keys.hash_key[:lanes].contiguous()
+    got = xm_k.nh_hash_kernel_call(payload, key)
+    torch.cuda.synchronize()
+    m = min(n, 655360)
+    e = err(got[:m], xm_ref.nh_hash_ref(payload[:m], key))
+    if e:
+        raise AssertionError(f"nh_hash_kernel_call differs from plain: {e}")
+    del got
+    # payload in, (hi, lo) out; the key once.  Per pair two adds, a
+    # 64-bit multiply and an accumulate.
+    b_ms, b_by = bound(n * (4 * lanes + 8) + 4 * lanes, n * lanes // 2 * 4)
+    call = lambda: xm_k.nh_hash_kernel_call(payload, key)
+    ms, timing = kernel_ms(call, "nh_hash_kernel")
+    out["nh_hash_kernel_call"] = dict(
+        leaf=path, n=n, lanes=lanes, compared_blocks=m, max_abs_err=e, ms=ms,
+        timing=timing, call_ms=median_ms(call),
+        plain_ms=median_ms(lambda: xm_ref.nh_hash_ref(payload, key), n=5,
+                           warmup=1),
+        bound_ms=b_ms, bound_by=b_by, ptxas=_ptxas("xormac"))
+    del payload, call
+    torch.cuda.empty_cache()
     return out
 
 
@@ -532,21 +633,32 @@ def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
             eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_ticks
+    return {"tick_ms": plain_wall * 1e3,
+            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}
+
+
+CRYPTO_SYMBOLS = ("aes_ctr_keystream", "fused_crypt_mac", "otp_xor",
+                  "nh_hash_kernel")
+
+
+def _device_breakdown(prof, wall_ms: float, n: int, unit: str) -> dict:
+    """Device busy time, idle share, launches and the top kernels per
+    ``unit`` from a CUPTI trace of ``n`` units that took ``wall_ms``
+    each on the host clock."""
     kernels = _device_events(prof)
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.device_time_total / 1e3)
-    busy = sum(by_name.values()) / n_ticks
+    busy = sum(by_name.values()) / n
     crypto = sum(v for k, v in by_name.items()
-                 if "aes_ctr_keystream" in k or "fused_crypt_mac" in k
-                 ) / n_ticks
+                 if any(sym in k for sym in CRYPTO_SYMBOLS)) / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"tick_ms": plain_wall * 1e3, "profiled_tick_ms": wall * 1e3,
+    return {f"profiled_{unit}_ms": wall_ms,
             "device_busy_ms": busy, "crypto_kernel_ms": crypto,
-            "device_idle_share": (1 - busy / (wall * 1e3)) if kernels else None,
-            "kernel_launches_per_tick": len(kernels) / n_ticks,
-            "top_kernels_ms_per_tick": [(k[:90], v / n_ticks) for k, v in top]}
+            "device_idle_share": (1 - busy / wall_ms) if kernels else None,
+            f"kernel_launches_per_{unit}": len(kernels) / n,
+            f"top_kernels_ms_per_{unit}": [(k[:90], v / n) for k, v in top]}
 
 
 def phase_profile(arch, cfg, results: dict) -> dict:
@@ -662,6 +774,202 @@ def phase_tenant_tamper(arch, cfg, params) -> dict:
     raise AssertionError("a cross-tenant page read was not detected")
 
 
+def _timed(fn) -> tuple:
+    """``(fn(), wall ms)``, the wall clock around work that ends in a
+    device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bit_equal(got, want) -> bool:
+    import torch
+
+    from repro_torch.core.layout import tree_flatten
+    a, b = tree_flatten(got)[0], tree_flatten(want)[0]
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_weights(results: dict) -> dict:
+    """The weights boundary at full width: ``SecureExecutor("seda")``
+    (kernels: AES-CTR, otp_xor, NH), then ``seda512`` once."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import vn
+    from repro_torch.core.layout import tree_flatten
+    from repro_torch.core.secure_exec import SecureExecutor
+    from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    params = results["params"]
+    n_leaves = len(tree_flatten(params)[0])
+    keys = SecureKeys.derive(0, device="cuda")
+    gc.collect()                           # earlier phases' cycles
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    peak = {}
+
+    def read_peak(step: str) -> None:
+        peak[step] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    ex = SecureExecutor("seda", keys=keys)
+    spec = ex.region_spec(params)
+    protect_ms, state, launches = [], None, None
+    for i in range(3):
+        state = None                       # free the last ciphertexts
+        if i == 0:
+            reset_launches()               # the weights path starts here
+        state, ms = _timed(lambda: ex.protect(params, spec, step=1))
+        if i == 0:
+            launches = dict(LAUNCHES)      # ... and ends here
+        protect_ms.append(ms)
+    zero = [k for k in WEIGHTS_KEY if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the weights path: "
+                             f"{zero}")
+    want = {"aes_ctr_keystream": 2 * n_leaves, "otp_xor": n_leaves,
+            "nh_hash_kernel_call": n_leaves}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"launches per protect {launches}, want {want}")
+    read_peak("protect")
+    unprotect_ms = []
+    for i in range(3):
+        (tree, ok), ms = _timed(lambda: ex.unprotect(state, spec))
+        unprotect_ms.append(ms)
+        if i == 0 and not (bool(ok) and _bit_equal(tree, params)):
+            raise AssertionError(f"seda round trip: ok {bool(ok)}, "
+                                 f"bit-equal {_bit_equal(tree, params)}")
+        del tree
+    profiles = {}
+    for name, fn in (("protect", lambda: ex.protect(params, spec, step=1)),
+                     ("unprotect", lambda: ex.unprotect(state, spec))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, ms = _timed(fn)
+        profiles[name] = _device_breakdown(prof, ms, 1, "call")
+    # One flipped ciphertext byte in the middle of the largest leaf.
+    big = max(range(n_leaves), key=lambda j: state.ciphertexts[j].numel())
+    ct = state.ciphertexts[big]
+    pos = ct.numel() // 2 + 5
+    ct[pos] ^= 0x01
+    tampered_ok = bool(ex.unprotect(state, spec)[1])
+    ct[pos] ^= 0x01
+    del ct
+    stale_vn = vn.vn_for(vn.Role.WEIGHT, step=0)
+    replay_ok = bool(ex.unprotect(state._replace(vn_lo=stale_vn), spec)[1])
+    if tampered_ok or replay_ok:
+        raise AssertionError(f"not detected: tamper ok {tampered_ok}, "
+                             f"replay ok {replay_ok}")
+    blocks = sum(c.numel() // 64 for c in state.ciphertexts)
+    state = None
+    torch.cuda.empty_cache()
+    read_peak("unprotect")
+
+    ex512 = SecureExecutor("seda512", keys=keys)
+    spec512 = ex512.region_spec(params)
+    reset_launches()
+    state, ms512 = _timed(lambda: ex512.protect(params, spec512, step=1))
+    launches512 = dict(LAUNCHES)
+    (tree, ok), ums512 = _timed(lambda: ex512.unprotect(state, spec512))
+    if not (bool(ok) and _bit_equal(tree, params)):
+        raise AssertionError("seda512 round trip failed")
+    if (launches512["nh_hash_kernel_call"] != n_leaves
+            or launches512["otp_xor"] != 0):
+        raise AssertionError(f"seda512 launches {launches512}")
+    del tree, state
+    torch.cuda.empty_cache()
+    read_peak("seda512")
+    results["weights_launches"] = launches
+    return {
+        "scheme": "seda", "leaves": n_leaves, "blocks_64": blocks,
+        "bytes": sum(t.numel() * t.element_size()
+                     for t in tree_flatten(params)[0]),
+        "launches_per_protect": {k: launches[k] for k in WEIGHTS_KEY},
+        "protect_ms": protect_ms,
+        "protect_ms_median": statistics.median(protect_ms),
+        "unprotect_ms": unprotect_ms,
+        "unprotect_ms_median": statistics.median(unprotect_ms),
+        "profile": profiles,
+        "tamper_ok": tampered_ok, "replay_ok": replay_ok,
+        "seda512": {"protect_ms": ms512, "unprotect_ms": ums512,
+                    "launches_per_protect": {k: launches512[k]
+                                             for k in WEIGHTS_KEY}},
+        "mem_at_start_gb": mem_start, "peak_mem_gb": peak}
+
+
+def phase_checkpoint(arch, cfg, results: dict) -> dict:
+    """A secure checkpoint of minitron-4b at full width and 2 layers:
+    save, find, load + verify, serve from it, reject a flipped byte."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.secure_ckpt import (CheckpointError,
+                                                    latest_step,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.models import lm
+
+    cfg2 = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    params = _full_params(cfg2)
+    keys = SecureKeys.derive(0, device="cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build")
+    try:
+        path, save_ms = _timed(lambda: save_checkpoint(tmp, 1, params, keys))
+        written = sum(f.stat().st_size for f in Path(path).iterdir())
+        if latest_step(tmp) != 1:
+            raise AssertionError(f"latest_step {latest_step(tmp)} != 1")
+        (restored, manifest), load_ms = _timed(
+            lambda: load_checkpoint(path, lm.lm_specs(cfg2), keys))
+        if not _bit_equal(restored, params):
+            raise AssertionError("restored weights differ from the saved")
+        tokens = {}
+        for key, tree in (("restored", restored), ("original", params)):
+            eng, tokens[key], _ = _serve_once(arch, cfg2, tree,
+                                              results["prompts"], "seda",
+                                              True)
+            del eng
+        if tokens["restored"] != tokens["original"]:
+            raise AssertionError("tokens differ between the restored and "
+                                 "the original weights")
+        del restored
+        leaf = Path(path, manifest["leaves"][-1]["file"])
+        with open(leaf, "r+b") as f:
+            f.seek(leaf.stat().st_size // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x01]))
+        try:
+            load_checkpoint(path, lm.lm_specs(cfg2), keys)
+        except CheckpointError as e:
+            rejected = str(e)
+        else:
+            raise AssertionError("a flipped leaf byte was not detected")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"config": f"{cfg.name} x {CKPT_LAYERS} layers",
+            "leaves": len(manifest["leaves"]),
+            "block_bytes": manifest["block_bytes"],
+            "bytes_written": written, "save_s": save_ms / 1e3,
+            "load_s": load_ms / 1e3, "tokens_equal": True,
+            "first_request_tokens": tokens["restored"][0],
+            "tampered_leaf": leaf.name, "rejected": rejected}
+
+
 def phase_launch(results: dict) -> dict:
     import gc
 
@@ -704,9 +1012,15 @@ KERNEL_META = {
     "fused_crypt_mac_write_mixed": (
         "src/repro_torch/kernels/csrc/fused_crypt_mac.cu",
         "src/repro/kernels/fused_crypt_mac/kernel.py:221"),
+    "otp_xor": ("src/repro_torch/kernels/csrc/otp_xor.cu",
+                "src/repro/kernels/otp_xor/kernel.py:45"),
+    "nh_hash_kernel_call": ("src/repro_torch/kernels/csrc/xormac.cu",
+                            "src/repro/kernels/xormac/kernel.py:61"),
 }
 # The path each kernel's launch count is read from.
 LAUNCHES_FROM = {name: "tenant_launches" for name in MIXED_KEY}
+LAUNCHES_FROM.update(otp_xor="weights_launches",
+                     nh_hash_kernel_call="weights_launches")
 
 
 def main() -> int:
@@ -730,6 +1044,8 @@ def main() -> int:
         ("tenants", lambda: phase_tenants(arch, cfg, results)),
         ("tenant_tamper",
          lambda: phase_tenant_tamper(arch, cfg, results["params"])),
+        ("weights", lambda: phase_weights(results)),
+        ("checkpoint", lambda: phase_checkpoint(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),
     ]
     for name, fn in phases:

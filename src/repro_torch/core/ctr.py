@@ -11,9 +11,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import aes
-from repro_torch.core.bytesutil import i64
+from repro_torch.core.bytesutil import MASK32, i64
 
-__all__ = ["counter_blocks", "ctr_keystream"]
+__all__ = ["counter_blocks", "ctr_keystream", "ctr_encrypt", "ctr_decrypt"]
 
 
 def counter_blocks(words: torch.Tensor) -> torch.Tensor:
@@ -30,3 +30,23 @@ def ctr_keystream(round_keys: torch.Tensor,
                   counter_words: torch.Tensor) -> torch.Tensor:
     """OTP = AES-CTR_{Ke}(PA || VN): (..., 4) u32 counters -> (..., 16) u8."""
     return aes.aes128_encrypt_block(counter_blocks(counter_words), round_keys)
+
+
+def ctr_encrypt(plaintext: torch.Tensor, round_keys: torch.Tensor, pa_hi,
+                pa_lo, vn_hi, vn_lo) -> torch.Tensor:
+    """T-AES: one AES call per 16 B segment of a flat uint8 buffer; the
+    segment at byte ``16 * i`` uses counter ``(PA + i) || VN`` (the
+    64-bit PA carries from ``pa_lo`` into ``pa_hi``)."""
+    segs = plaintext.reshape(-1, 16)
+    lo = int(pa_lo) + torch.arange(segs.shape[0], dtype=torch.int64,
+                                   device=segs.device)
+    hi = (int(pa_hi) + (lo >> 32)) & MASK32
+    vn = torch.tensor([int(vn_hi), int(vn_lo)], dtype=torch.int64,
+                      device=segs.device).expand(segs.shape[0], 2)
+    counters = torch.cat([torch.stack([hi, lo & MASK32], dim=-1), vn], dim=-1)
+    otp = ctr_keystream(round_keys, counters)
+    return (segs ^ otp).reshape(plaintext.shape)
+
+
+# CTR decryption is the same operation (Eq. 2).
+ctr_decrypt = ctr_encrypt

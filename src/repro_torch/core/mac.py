@@ -1,12 +1,16 @@
-"""Integrity MACs for SeDA (paper §III-C, Alg. 2), ``nh`` engine.
+"""Integrity MACs for SeDA (paper §III-C, Alg. 2).
 
-Per-optBlk MAC = AES_{Ke}(NH(payload ‖ binding) ‖ binding words),
-truncated to :data:`MAC_BYTES`; page and pool MACs XOR-aggregate block
-MACs.  The binding tuple (PA, VN, layer_id, fmap_idx, blk_idx) is the
-RePA defense: it is hashed into every block MAC.
+Per-optBlk MAC, XOR-aggregated layer MAC, and model MAC.  Three block
+MAC engines, as in the reference:
 
-Every entry of ``SCHEMES`` uses ``nh``; the ``cbc`` and ``naive``
-engines are not ported yet and raise.
+* ``nh`` (every entry of ``SCHEMES``): AES_{Ke}(NH(payload ‖ binding) ‖
+  binding words), truncated to :data:`MAC_BYTES`;
+* ``cbc``: AES-CBC-MAC over binding block ‖ payload segments;
+* ``naive``: the RePA-vulnerable strawman, a CBC-MAC of the ciphertext
+  only (no binding), for the attack demonstration.
+
+The binding tuple (PA, VN, layer_id, fmap_idx, blk_idx) is the RePA
+defense: it is hashed into every ``nh`` and ``cbc`` block MAC.
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import ctr
-from repro_torch.core.bytesutil import MASK32, i64
+from repro_torch.core import aes, ctr
+from repro_torch.core.bytesutil import MASK32, i64, u32
 
-__all__ = ["MAC_BYTES", "Binding", "nh_hash", "nh_payload", "finalize_words",
-           "finalize_macs", "block_macs", "xor_aggregate"]
+__all__ = ["MAC_BYTES", "Binding", "nh_hash", "nh_payload", "nh_payload_u32",
+           "check_nh_key", "finalize_words", "finalize_macs", "block_macs",
+           "xor_aggregate", "layer_mac", "model_mac", "verify_layer"]
 
 MAC_BYTES = 8
 
@@ -71,14 +76,25 @@ def nh_hash(lanes_u32: torch.Tensor, key_u32: torch.Tensor):
     return hi_sum & MASK32, lo_sum & MASK32
 
 
-def nh_payload(blocks_u8: torch.Tensor, binding: Binding) -> torch.Tensor:
-    """NH input lanes (int64 u32): data lanes ‖ binding words, even length."""
+def nh_payload_u32(blocks_u8: torch.Tensor,
+                   binding: Binding) -> torch.Tensor:
+    """NH input lanes, data lanes ‖ binding words, even length: (N, L)
+    u32 in int32 storage (the NH kernel's operand)."""
     n_blocks, block_bytes = blocks_u8.shape
-    lanes = i64(blocks_u8.contiguous().view(torch.int32))
-    payload = torch.cat([lanes, binding.words(n_blocks)], dim=-1)
-    if payload.shape[-1] % 2:
-        payload = torch.nn.functional.pad(payload, (0, 1))
+    lanes = block_bytes // 4
+    width = lanes + 8 + (lanes % 2)
+    # Filled column by column: no (N, 8) int64 binding table.
+    payload = torch.zeros((n_blocks, width), dtype=torch.int32,
+                          device=blocks_u8.device)
+    payload[:, :lanes] = blocks_u8.contiguous().view(torch.int32)
+    for j, field in enumerate(binding):
+        payload[:, lanes + j] = u32(field.expand(n_blocks))
     return payload
+
+
+def nh_payload(blocks_u8: torch.Tensor, binding: Binding) -> torch.Tensor:
+    """NH input lanes as int64 u32 words."""
+    return i64(nh_payload_u32(blocks_u8, binding))
 
 
 def finalize_words(hi: torch.Tensor, lo: torch.Tensor,
@@ -100,19 +116,54 @@ def finalize_macs(hi: torch.Tensor, lo: torch.Tensor, binding: Binding,
     return ctr.ctr_keystream(round_keys, fin)[:, :MAC_BYTES]
 
 
+def check_nh_key(hash_key_u32: torch.Tensor, lanes: int) -> None:
+    if hash_key_u32.shape[-1] < lanes:
+        raise ValueError(
+            f"NH key too short: {hash_key_u32.shape[-1]} lanes for "
+            f"{lanes}-lane payload (optBlk too large)")
+
+
+def _nh_block_macs(blocks_u8, binding, hash_key_u32, round_keys):
+    payload = nh_payload(blocks_u8, binding)
+    check_nh_key(hash_key_u32, payload.shape[-1])
+    hi, lo = nh_hash(payload, hash_key_u32[: payload.shape[-1]])
+    return finalize_macs(hi, lo, binding, round_keys)
+
+
+def _cbc_chain(state: torch.Tensor, blocks_u8: torch.Tensor,
+               round_keys: torch.Tensor) -> torch.Tensor:
+    """CBC-MAC chain over the 16 B segments of each block -> (n, 8) u8."""
+    segs = blocks_u8.reshape(blocks_u8.shape[0], -1, 16)
+    for i in range(segs.shape[1]):
+        state = aes.aes128_encrypt_block(state ^ segs[:, i], round_keys)
+    return state[:, :MAC_BYTES]
+
+
+def _cbc_block_macs(blocks_u8, binding, round_keys):
+    """AES-CBC-MAC over binding block ‖ payload segments."""
+    bind_words = binding.words(blocks_u8.shape[0])[:, :4]
+    state = ctr.ctr_keystream(round_keys, bind_words)
+    return _cbc_chain(state, blocks_u8, round_keys)
+
+
+def _naive_block_macs(blocks_u8, round_keys):
+    """RePA-VULNERABLE strawman: the MAC depends on the ciphertext only."""
+    state = torch.zeros((blocks_u8.shape[0], 16), dtype=torch.uint8,
+                        device=blocks_u8.device)
+    return _cbc_chain(state, blocks_u8, round_keys)
+
+
 def block_macs(blocks_u8: torch.Tensor, binding: Binding, *,
                hash_key_u32: torch.Tensor, round_keys: torch.Tensor,
                engine: str = "nh") -> torch.Tensor:
     """Per-optBlk MACs: (n_blocks, block_bytes) u8 -> (n_blocks, 8) u8."""
-    if engine != "nh":
-        raise ValueError(f"MAC engine {engine!r} is not ported (nh only)")
-    payload = nh_payload(blocks_u8, binding)
-    if hash_key_u32.shape[-1] < payload.shape[-1]:
-        raise ValueError(
-            f"NH key too short: {hash_key_u32.shape[-1]} lanes for "
-            f"{payload.shape[-1]}-lane payload (optBlk too large)")
-    hi, lo = nh_hash(payload, hash_key_u32[: payload.shape[-1]])
-    return finalize_macs(hi, lo, binding, round_keys)
+    if engine == "nh":
+        return _nh_block_macs(blocks_u8, binding, hash_key_u32, round_keys)
+    if engine == "cbc":
+        return _cbc_block_macs(blocks_u8, binding, round_keys)
+    if engine == "naive":
+        return _naive_block_macs(blocks_u8, round_keys)
+    raise ValueError(f"unknown MAC engine: {engine}")
 
 
 def xor_aggregate(macs_u8: torch.Tensor, axis: int = 0) -> torch.Tensor:
@@ -131,3 +182,25 @@ def xor_aggregate(macs_u8: torch.Tensor, axis: int = 0) -> torch.Tensor:
             words = torch.cat([words, torch.zeros_like(words[:1])])
         words = words[0::2] ^ words[1::2]
     return words[0].unsqueeze(-1).view(torch.uint8)
+
+
+def layer_mac(blocks_u8: torch.Tensor, binding: Binding, *, hash_key_u32,
+              round_keys, engine: str = "nh") -> torch.Tensor:
+    """Layer MAC = XOR of all optBlk MACs within the layer -> (8,) u8."""
+    return xor_aggregate(
+        block_macs(blocks_u8, binding, hash_key_u32=hash_key_u32,
+                   round_keys=round_keys, engine=engine))
+
+
+def model_mac(layer_macs_u8: torch.Tensor) -> torch.Tensor:
+    """Model MAC: one MAC over all layer MACs -> (8,) u8."""
+    return xor_aggregate(layer_macs_u8)
+
+
+def verify_layer(blocks_u8: torch.Tensor, binding: Binding,
+                 expected_mac: torch.Tensor, *, hash_key_u32, round_keys,
+                 engine: str = "nh") -> torch.Tensor:
+    """Recompute a layer MAC and compare: a scalar bool tensor."""
+    got = layer_mac(blocks_u8, binding, hash_key_u32=hash_key_u32,
+                    round_keys=round_keys, engine=engine)
+    return torch.all(got == expected_mac)

@@ -25,6 +25,8 @@ LAUNCHES = {
     "aes_ctr_keystream_multi": 0,
     "fused_crypt_mac_mixed": 0,
     "fused_crypt_mac_write_mixed": 0,
+    "otp_xor": 0,
+    "nh_hash_kernel_call": 0,
 }
 
 

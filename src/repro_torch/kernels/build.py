@@ -24,6 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "aes_ctr": "aes_ctr.cu",
     "fused_crypt_mac": "fused_crypt_mac.cu",
+    "otp_xor": "otp_xor.cu",
+    "xormac": "xormac.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

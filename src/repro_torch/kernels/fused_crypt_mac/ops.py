@@ -23,17 +23,12 @@ from repro_torch.kernels.aes_ctr.ops import (keystream_bytes,
 from repro_torch.kernels.fused_crypt_mac.kernel import (
     MAX_SEGMENTS, fused_crypt_mac, fused_crypt_mac_mixed,
     fused_crypt_mac_write, fused_crypt_mac_write_mixed)
+from repro_torch.kernels.otp_xor.ops import _div_lanes
 
 __all__ = ["secure_read_kernel", "secure_write_kernel",
            "secure_read_kernel_mixed", "secure_write_kernel_mixed",
            "fused_crypt_mac", "fused_crypt_mac_write",
            "fused_crypt_mac_mixed", "fused_crypt_mac_write_mixed"]
-
-
-def _div_lanes(round_keys: torch.Tensor, n_segments: int) -> torch.Tensor:
-    """Diversifiers as (S, 4) u32 lanes, int32 storage (row 0 = zeros)."""
-    div_u8 = baes.diversifiers(round_keys, n_segments)        # (S, 16) u8
-    return div_u8.contiguous().view(torch.int32).reshape(n_segments, 4)
 
 
 def _div_bank(bank_round_keys: torch.Tensor, n_segments: int) -> torch.Tensor:

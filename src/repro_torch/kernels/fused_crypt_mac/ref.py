@@ -6,19 +6,10 @@ import torch
 
 from repro_torch.core import mac
 from repro_torch.core.bytesutil import u32
+from repro_torch.kernels.otp_xor.ref import otp_xor_ref
 
 __all__ = ["otp_xor_ref", "fused_crypt_mac_ref", "fused_crypt_mac_write_ref",
            "fused_crypt_mac_mixed_ref", "fused_crypt_mac_write_mixed_ref"]
-
-
-def otp_xor_ref(data_lanes: torch.Tensor, base_otp_lanes: torch.Tensor,
-                div_lanes: torch.Tensor) -> torch.Tensor:
-    """(N, 4S) ^ (base (N, 4) ^ div (S, 4) or per-block (N, S, 4)) per
-    segment (int32 storage)."""
-    n, lanes = data_lanes.shape
-    s = div_lanes.shape[-2]
-    pads = base_otp_lanes[:, None, :] ^ div_lanes
-    return (data_lanes.reshape(n, s, 4) ^ pads).reshape(n, lanes)
 
 
 def _nh_pairs(lanes: torch.Tensor, bind_words: torch.Tensor,

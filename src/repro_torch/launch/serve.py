@@ -1,4 +1,5 @@
-"""Serving driver of the port: the paged secure engine on random weights.
+"""Serving driver of the port: the paged secure engine on random or
+checkpointed weights.
 
 Mirrors the paged path of the reference launcher (``repro.launch.serve
 --engine paged``): the KV cache lives as a paged, MAC-protected pool,
@@ -16,19 +17,27 @@ ticks (round-robin)::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --engine paged --tenants 2 --rotate-every 2
 
+``--ckpt-dir D`` serves the newest checkpoint published in ``D``
+(:mod:`repro_torch.checkpoint.secure_ckpt`), loaded and verified with
+the ``--seed`` session keys; without one it serves the fresh init::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --ckpt-dir /path/to/ckpts
+
 Runs on the card unless ``--device cpu``.  Unlike the reference
 launcher, the engine is built with ``use_kernel=True``: on the card the
 ``seda`` crossings run the CUDA kernels (on the CPU, their plain
-versions).  Weights are random, from a ``torch.Generator`` seeded with
-``--seed`` (not the reference's JAX draw).  Not accepted yet, because
-their modules are not ported: ``--engine simple``, ``--shards``,
-``--fault-tolerance``, ``--ckpt-dir``, and the logging, observability,
-SLO and audit flags.
+versions).  Fresh weights are random, from a ``torch.Generator`` seeded
+with ``--seed`` (not the reference's JAX draw).  Not accepted yet,
+because their modules are not ported: ``--engine simple``, ``--shards``,
+``--fault-tolerance``, and the logging, observability, SLO and audit
+flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.secure_ckpt import latest_step, load_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.models import lm as lm_mod
@@ -67,6 +77,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--rotate-every", type=int, default=0,
                     help="rotate one tenant's keys every K ticks "
                          "(round-robin; needs --tenants)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest secure checkpoint in this "
+                         "directory (verified with the --seed keys)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     return ap
@@ -80,8 +93,16 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.make_smoke_config() if args.smoke else arch.make_config()
-    params = init_params(lm_mod.lm_specs(cfg), args.seed, device=device)
-    print("[serve] no checkpoint: serving fresh init", flush=True)
+    specs = lm_mod.lm_specs(cfg)
+    step = latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if step is not None:
+        path = os.path.join(args.ckpt_dir, f"step_{step:08d}")
+        keys = SecureKeys.derive(args.seed, device=device)
+        params, _ = load_checkpoint(path, specs, keys, device=device)
+        print(f"[serve] loaded + verified checkpoint {path}", flush=True)
+    else:
+        params = init_params(specs, args.seed, device=device)
+        print("[serve] no checkpoint: serving fresh init", flush=True)
     return _serve_paged(arch, cfg, params, args, device)
 
 

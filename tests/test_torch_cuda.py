@@ -2,7 +2,9 @@
 
 Rows of the mixed-key kernels are drawn over a (K, ...) key bank at
 edge sizes; a bank too large for a thread block's shared memory and bad
-operands must raise.
+operands must raise.  The weights boundary (``protect`` / ``unprotect``
+and checkpoints) on the card gives the CPU's bytes, and its narrow
+B-AES and NH MACs go through the kernels.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -22,6 +24,12 @@ from repro_torch.kernels.aes_ctr import ref as aes_ref
 from repro_torch.kernels.fused_crypt_mac import kernel as fused
 from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
 from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
+from repro_torch.kernels.otp_xor import kernel as ox_k
+from repro_torch.kernels.otp_xor import ops as ox_ops
+from repro_torch.kernels.otp_xor import ref as ox_ref
+from repro_torch.kernels.xormac import kernel as xm_k
+from repro_torch.kernels.xormac import ops as xm_ops
+from repro_torch.kernels.xormac import ref as xm_ref
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
 
 pytestmark = pytest.mark.cuda
@@ -234,3 +242,142 @@ def test_mixed_kernels_refuse_large_bank_and_bad_operands(card):
     with pytest.raises(ValueError):                  # non-contiguous counters
         aes_k.aes_ctr_keystream_multi(
             _u32(rng, (n, 8), card)[:, ::2], round_keys, rows)
+
+
+@pytest.mark.parametrize("n", [1, 7, 655360])
+@pytest.mark.parametrize("s", [1, 4, 11])
+def test_otp_xor_equals_plain(card, n, s):
+    rng = np.random.default_rng(n + s)
+    args = (_u32(rng, (n, 4 * s), card), _u32(rng, (n, 4), card),
+            _u32(rng, (s, 4), card))
+    reset_launches()
+    got = ox_k.otp_xor(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["otp_xor"] == 1
+    assert torch.equal(got, ox_ref.otp_xor_ref(*args))
+
+
+@pytest.mark.parametrize("n", [1, 7, 655360])
+@pytest.mark.parametrize("lanes", [6, 24, 136])
+def test_nh_hash_equals_plain(card, n, lanes):
+    rng = np.random.default_rng(n * lanes)
+    payload, key = _u32(rng, (n, lanes), card), _u32(rng, (lanes,), card)
+    reset_launches()
+    got = xm_k.nh_hash_kernel_call(payload, key)
+    torch.cuda.synchronize()
+    assert LAUNCHES["nh_hash_kernel_call"] == 1
+    assert torch.equal(got, xm_ref.nh_hash_ref(payload, key))
+
+
+def test_nh_hash_rows_longer_than_a_key_chunk(card):
+    """Rows over 4096 lanes loop over key chunks in shared memory."""
+    rng = np.random.default_rng(12)
+    for lanes in (8200, 8198):
+        payload, key = _u32(rng, (37, lanes), card), _u32(rng, (lanes,), card)
+        got = xm_k.nh_hash_kernel_call(payload, key)
+        torch.cuda.synchronize()
+        assert torch.equal(got, xm_ref.nh_hash_ref(payload, key))
+
+
+@pytest.mark.parametrize("block_bytes", [16, 64, 176])
+def test_baes_and_block_macs_kernel_equal_cpu(card, block_bytes):
+    rng = np.random.default_rng(block_bytes)
+    n = 4099
+    data = rng.integers(0, 256, n * block_bytes, dtype=np.uint8)
+    words = rng.integers(0, 2 ** 32, (n, 4)).astype(np.int64)
+    fields = [rng.integers(0, 2 ** 32, n).astype(np.int64) for _ in range(5)]
+    outs = []
+    for dev in ("cpu", card):
+        keys = SecureKeys.derive(13, device=dev)
+        binding = mac.Binding.make(*(torch.from_numpy(f).to(dev)
+                                     for f in fields))
+        ct = ox_ops.baes_encrypt_kernel(torch.from_numpy(data).to(dev),
+                                        keys.round_keys,
+                                        torch.from_numpy(words).to(dev),
+                                        block_bytes=block_bytes)
+        macs = xm_ops.block_macs_kernel(ct.reshape(n, block_bytes), binding,
+                                        hash_key_u32=keys.hash_key,
+                                        round_keys=keys.round_keys)
+        outs.append((ct.cpu(), macs.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_new_kernels_refuse_bad_operands(card):
+    rng = np.random.default_rng(14)
+    data, base = _u32(rng, (8, 16), card), _u32(rng, (8, 4), card)
+    div = _u32(rng, (4, 4), card)
+    with pytest.raises(TypeError):
+        ox_k.otp_xor(data.long(), base, div)
+    with pytest.raises(ValueError):                  # lanes != 4 S
+        ox_k.otp_xor(data, base, _u32(rng, (3, 4), card))
+    with pytest.raises(ValueError):                  # base rows short
+        ox_k.otp_xor(data, base[:-1].contiguous(), div)
+    with pytest.raises(ValueError):                  # mixed devices
+        ox_k.otp_xor(data, base.cpu(), div)
+    payload = _u32(rng, (8, 24), card)
+    with pytest.raises(ValueError):                  # key of another L
+        xm_k.nh_hash_kernel_call(payload, _u32(rng, (26,), card))
+    with pytest.raises(ValueError):                  # non-contiguous
+        xm_k.nh_hash_kernel_call(_u32(rng, (8, 48), card)[:, ::2],
+                                 _u32(rng, (24,), card))
+
+
+def _weights_tree(device) -> dict:
+    rng = np.random.default_rng(15)
+    return {
+        "w": torch.from_numpy(rng.standard_normal((64, 48)).astype(
+            np.float32)).to(device).to(torch.bfloat16),
+        "layers": [{"b": torch.from_numpy(rng.standard_normal(37).astype(
+            np.float32)).to(device)},
+            {"odd": torch.from_numpy(rng.integers(0, 256, 13).astype(
+                np.uint8)).to(device)}],
+    }
+
+
+@pytest.mark.parametrize("scheme", ["seda", "seda512", "sgx64", "mgx512"])
+def test_protect_on_the_card_equals_cpu(card, scheme):
+    from repro_torch.core.layout import tree_flatten
+    from repro_torch.core.secure_exec import SCHEMES, SecureExecutor
+    states = []
+    for dev in ("cpu", card):
+        ex = SecureExecutor(scheme, keys=SecureKeys.derive(16, device=dev))
+        tree = _weights_tree(dev)
+        spec = ex.region_spec(tree)
+        reset_launches()
+        state = ex.protect(tree, spec, step=5)
+        launches = dict(LAUNCHES)
+        out, ok = ex.unprotect(state, spec)
+        assert bool(ok)
+        for a, b in zip(tree_flatten(out)[0], tree_flatten(tree)[0]):
+            assert torch.equal(a, b)
+        states.append((state, launches))
+    (cpu, cpu_launches), (gpu, gpu_launches) = states
+    for a, b in zip(cpu.ciphertexts, gpu.ciphertexts):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(cpu.layer_macs, gpu.layer_macs.cpu())
+    assert torch.equal(cpu.model_mac, gpu.model_mac.cpu())
+    assert cpu.vn_lo == gpu.vn_lo
+    assert all(v == 0 for v in cpu_launches.values())
+    cfg, n_leaves = SCHEMES[scheme], 3
+    narrow = cfg.baes and cfg.block_bytes <= 176
+    assert gpu_launches["nh_hash_kernel_call"] == n_leaves
+    assert gpu_launches["otp_xor"] == (n_leaves if narrow else 0)
+    assert gpu_launches["aes_ctr_keystream"] == n_leaves * (1 + narrow)
+
+
+def test_checkpoint_saved_on_the_card_loads_on_cpu(card, tmp_path):
+    from repro_torch.checkpoint.secure_ckpt import (CheckpointError,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+    tree = _weights_tree(card)
+    path = save_checkpoint(str(tmp_path), 1, tree,
+                           SecureKeys.derive(17, device=card),
+                           block_bytes=64)
+    out, _ = load_checkpoint(path, tree, SecureKeys.derive(17, device="cpu"),
+                             device="cpu")
+    assert torch.equal(out["w"], tree["w"].cpu())
+    out, _ = load_checkpoint(path, tree, SecureKeys.derive(17, device=card))
+    assert out["w"].device.type == "cuda" and torch.equal(out["w"], tree["w"])
+    with pytest.raises(CheckpointError):
+        load_checkpoint(path, tree, SecureKeys.derive(18, device=card))

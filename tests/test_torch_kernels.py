@@ -19,7 +19,12 @@ from repro.kernels.aes_ctr import ref as j_aes_ref
 from repro.kernels.fused_crypt_mac import kernel as j_fused
 from repro.kernels.fused_crypt_mac import ops as j_fused_ops
 from repro.kernels.fused_crypt_mac import ref as j_fused_ref
+from repro.core import baes as j_baes
+from repro.kernels.otp_xor import ops as j_ox_ops
 from repro.kernels.otp_xor.ops import _div_lanes as j_div_lanes
+from repro.kernels.otp_xor.ref import otp_xor_ref as j_otp_xor_ref
+from repro.kernels.xormac import ops as j_xm_ops
+from repro.kernels.xormac.ref import nh_hash_ref as j_nh_hash_ref
 from repro_torch.core import mac
 from repro_torch.core.bytesutil import i64
 from repro_torch.core.secure_memory import SecureKeys
@@ -30,6 +35,11 @@ from repro_torch.kernels.common import check_operand, on_cpu
 from repro_torch.kernels.fused_crypt_mac import kernel as fused
 from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
 from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
+from repro_torch.kernels.otp_xor import ops as ox_ops
+from repro_torch.kernels.otp_xor import ref as ox_ref
+from repro_torch.kernels.xormac import kernel as xm_kernel
+from repro_torch.kernels.xormac import ops as xm_ops
+from repro_torch.kernels.xormac import ref as xm_ref
 
 
 def _u32(a) -> torch.Tensor:
@@ -142,3 +152,111 @@ def test_operand_checks_refuse_what_the_kernel_does_not_take():
     assert on_cpu(t, t)
     with pytest.raises(ValueError, match="devices"):
         on_cpu(t, torch.zeros(1, device="meta"))
+
+
+@pytest.mark.parametrize("n,s", [(1, 2), (13, 4), (300, 8), (64, 32)])
+def test_otp_xor_matches_jax_kernel(n, s):
+    rng = np.random.default_rng(n * s)
+    data = rng.integers(0, 2 ** 32, (n, s * 4), np.uint32)
+    base = rng.integers(0, 2 ** 32, (n, 4), np.uint32)
+    div = rng.integers(0, 2 ** 32, (s, 4), np.uint32)
+    want = np.asarray(j_ox_ops.otp_xor(*map(jnp.asarray, (data, base, div))))
+    assert (want == np.asarray(j_otp_xor_ref(
+        *map(jnp.asarray, (data, base, div))))).all()
+    reset_launches()
+    for fn in (ox_ops.otp_xor, ox_ref.otp_xor_ref):
+        assert (_np(fn(*map(_u32, (data, base, div)))) == want).all()
+    assert LAUNCHES["otp_xor"] == 0                 # CPU: plain version
+
+
+@pytest.mark.parametrize("block_bytes", [16, 32, 64, 128, 176])
+def test_baes_encrypt_kernel_matches_jax(keys, block_bytes):
+    jk, tk = keys
+    rng = np.random.default_rng(block_bytes)
+    n = 40
+    pt = rng.integers(0, 256, block_bytes * n, np.uint8)
+    cw = np.stack([np.zeros(n, np.uint32),
+                   np.arange(n, dtype=np.uint32) * (block_bytes // 16),
+                   np.zeros(n, np.uint32), np.full(n, 3, np.uint32)], -1)
+    want = np.asarray(j_ox_ops.baes_encrypt_kernel(
+        jnp.asarray(pt), jk.round_keys, jnp.asarray(cw),
+        block_bytes=block_bytes))
+    assert (want == np.asarray(j_baes.baes_encrypt(
+        jnp.asarray(pt), jk.round_keys, jnp.asarray(cw),
+        block_bytes=block_bytes, key=jk.key))).all()
+    for words in (_u32(cw), i64(_u32(cw))):          # int32 or int64 words
+        got = ox_ops.baes_encrypt_kernel(torch.from_numpy(pt), tk.round_keys,
+                                         words, block_bytes=block_bytes)
+        assert (got.numpy() == want).all()
+    assert (_np(ox_ops._div_lanes(tk.round_keys, block_bytes // 16))
+            == np.asarray(j_div_lanes(jk.round_keys, block_bytes // 16))).all()
+
+
+def test_baes_encrypt_kernel_refuses_wide_blocks(keys):
+    _, tk = keys
+    with pytest.raises(ValueError, match="narrow"):
+        ox_ops.baes_encrypt_kernel(torch.zeros(192, dtype=torch.uint8),
+                                   tk.round_keys,
+                                   torch.zeros((1, 4), dtype=torch.int32),
+                                   block_bytes=192)
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 8), (50, 24), (200, 136), (3, 6)])
+def test_nh_hash_kernel_matches_jax(keys, n, lanes):
+    jk, tk = keys
+    payload = np.random.default_rng(n).integers(0, 2 ** 32, (n, lanes),
+                                                 np.uint32)
+    key = np.asarray(jk.hash_key)[:lanes]
+    want = np.asarray(j_xm_ops.nh_hash_kernel_call(jnp.asarray(payload),
+                                                   jnp.asarray(key)))
+    assert (want == np.asarray(j_nh_hash_ref(jnp.asarray(payload),
+                                             jnp.asarray(key)))).all()
+    reset_launches()
+    for fn in (xm_kernel.nh_hash_kernel_call, xm_ref.nh_hash_ref):
+        assert (_np(fn(_u32(payload), tk.hash_key[:lanes])) == want).all()
+    assert LAUNCHES["nh_hash_kernel_call"] == 0
+
+
+def test_nh_hash_kernel_checks_its_contract(keys):
+    _, tk = keys
+    with pytest.raises(ValueError, match="even"):
+        xm_kernel.nh_hash_kernel_call(torch.zeros((2, 5), dtype=torch.int32),
+                                      tk.hash_key[:5])
+    with pytest.raises(ValueError, match="even"):
+        xm_kernel.nh_hash_kernel_call(
+            torch.zeros((1, 2 * xm_kernel.MAX_PAIRS + 2), dtype=torch.int32),
+            torch.zeros(2 * xm_kernel.MAX_PAIRS + 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="key_u32"):
+        xm_kernel.nh_hash_kernel_call(torch.zeros((2, 8), dtype=torch.int32),
+                                      tk.hash_key[:10])
+
+
+@pytest.mark.parametrize("block_bytes", [64, 512])
+def test_block_and_layer_macs_kernel_match_jax(keys, block_bytes):
+    jk, tk = keys
+    rng = np.random.default_rng(2 + block_bytes)
+    n = 33
+    blocks = rng.integers(0, 256, (n, block_bytes), np.uint8)
+    fields = (np.arange(n) * (block_bytes // 16), 7, 2, 1, np.arange(n))
+    jb = j_mac.Binding.make(*fields)
+    tb = mac.Binding.make(*(torch.as_tensor(np.asarray(f, np.int64))
+                            for f in fields))
+    kw = dict(hash_key_u32=jk.hash_key, round_keys=jk.round_keys)
+    want = np.asarray(j_xm_ops.block_macs_kernel(jnp.asarray(blocks), jb,
+                                                 **kw))
+    assert (want == np.asarray(j_mac.block_macs(jnp.asarray(blocks), jb,
+                                                **kw))).all()
+    tkw = dict(hash_key_u32=tk.hash_key, round_keys=tk.round_keys)
+    got = xm_ops.block_macs_kernel(torch.from_numpy(blocks), tb, **tkw)
+    assert (got.numpy() == want).all()
+    assert (xm_ref.block_macs_ref(torch.from_numpy(blocks), tb,
+                                  **tkw).numpy() == want).all()
+    want_layer = np.asarray(j_xm_ops.layer_mac_kernel(jnp.asarray(blocks), jb,
+                                                      **kw))
+    for fn in (xm_ops.layer_mac_kernel, xm_ref.layer_mac_ref):
+        assert (fn(torch.from_numpy(blocks), tb, **tkw).numpy()
+                == want_layer).all()
+    with pytest.raises(ValueError, match="NH key too short"):
+        xm_ops.block_macs_kernel(torch.from_numpy(blocks), tb,
+                                 hash_key_u32=tk.hash_key[:8],
+                                 round_keys=tk.round_keys)
