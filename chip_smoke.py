@@ -5,14 +5,16 @@ Phases, in order, each printing one JSON line; any failure prints that
 phase's line with ``"ok": false`` and exits non-zero without a result:
 
 1. setup   — needs a CUDA device; prints the card's name and power limit
-             (``nvidia-smi``) and builds every kernel from ``csrc/``.
+             (``nvidia-smi``), builds every kernel from ``csrc/`` and
+             reports ``-Xptxas -v`` and the AES kernels' SASS counts.
 2. kernels — each CUDA kernel against its plain PyTorch version on the
              card at the serve, tenants and weights phases' shapes (bytes
              equal; the fused kernels also at S = 11; the mixed-key ones
-             over a 12-row key bank with rows mixed; otp_xor and the NH
-             kernel at the weights' largest leaf in 64 B blocks), with
-             median times over 25 launches and the card's least time for
-             the same work.
+             over a 12-row key bank with rows mixed, the mixed AES also
+             with one row per page; the single-key AES, otp_xor and the
+             NH kernel also at the weights' largest leaf in 64 B blocks),
+             with median times over 25 launches and the card's least
+             time for the same work.
 3. reference — the smoke config (float32) served by the engine under
              ``seda`` with the kernels gives the tokens of a plain
              prefill + decode loop.
@@ -129,23 +131,25 @@ def _device_events(prof) -> list:
 
 def kernel_ms(fn, symbol: str, n: int = 25) -> tuple:
     """Median device time of the CUDA kernel ``symbol`` over ``n`` calls of
-    ``fn``, from the profiler's CUPTI trace ("cupti").  Where the trace
-    shows no device time, the median of CUDA-event times around batches
-    of 10 back-to-back calls, per call ("events")."""
+    ``fn``, from the profiler's CUPTI trace ("cupti"; a trace that lost
+    launches is taken once more).  Where the trace shows no device time,
+    the median of CUDA-event times around batches of 10 back-to-back
+    calls, per call ("events"), host launch gaps included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(e.device_time_total / 1e3 for e in _device_events(prof)
-                   if symbol in e.name)
-    if len(times) >= n:
-        return times[len(times) // 2], "cupti"
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = sorted(e.device_time_total / 1e3
+                       for e in _device_events(prof) if symbol in e.name)
+        if len(times) >= n:
+            return times[len(times) // 2], "cupti"
     return median_ms(lambda: [fn() for _ in range(10)], n=n) / 10, "events"
 
 
@@ -171,13 +175,34 @@ def phase_setup() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     paths = build.build()
+    build_s = time.perf_counter() - t0
     regs = {name: _ptxas(name) for name in paths}
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
             "device": torch.cuda.get_device_name(0),
-            "build_s": round(time.perf_counter() - t0, 3),
+            "build_s": round(build_s, 3),
             "libraries": {k: str(v.relative_to(ROOT)) if v.is_relative_to(ROOT)
                           else str(v) for k, v in paths.items()},
-            "ptxas": regs}
+            "ptxas": regs, "aes_sass": _aes_sass()}
+
+
+def _aes_sass() -> dict:
+    """SASS of each AES kernel body (``cuobjdump -sass``): instructions
+    in all and the ten commonest opcodes; the launch's thread blocks."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.aes_ctr import kernel as aes_k
+    out = {}
+    for symbol, counts in build.sass_counts("aes_ctr").items():
+        for name in ("aes_ctr_keystream_multi_kernel",
+                     "aes_ctr_keystream_kernel"):
+            if name in symbol:
+                top = sorted(((k, v) for k, v in counts.items()
+                              if k != "instructions"), key=lambda kv: -kv[1])
+                out[name] = {"instructions": counts["instructions"],
+                             "opcodes": dict(top[:10])}
+                break
+    out["grid_blocks"] = {"single_key": aes_k.grid_blocks(),
+                          "mixed_k12": aes_k.grid_blocks(12)}
+    return out
 
 
 def _serve_shapes(cfg) -> dict:
@@ -222,14 +247,16 @@ def phase_kernels(cfg, results: dict) -> dict:
     e = err(got, want)
     if e:
         raise AssertionError(f"aes_ctr_keystream differs from plain: {e}")
-    b_ms, b_by = bound(n * 32 + 176 + 256, n * AES_OPS_PER_BLOCK)
+    # Counters in, lanes out; the schedule and the 1 KB T-table once.
+    b_ms, b_by = bound(n * 32 + 176 + 1024, n * AES_OPS_PER_BLOCK)
     call = lambda: aes_k.aes_ctr_keystream(counters, keys.round_keys)
     ms, timing = kernel_ms(call, "aes_ctr_keystream_kernel")
     out["aes_ctr_keystream"] = dict(
         n=n, max_abs_err=e, ms=ms, timing=timing, call_ms=median_ms(call),
         plain_ms=median_ms(lambda: aes_ref.aes_ctr_keystream_lanes_ref(
             counters, keys.round_keys), n=20),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, ptxas=_ptxas("aes_ctr"),
+        at_largest_leaf=_keystream_at_largest_leaf(cfg, keys, err))
 
     for name, fn, ref, n in (
             ("fused_crypt_mac", fused_k.fused_crypt_mac,
@@ -266,6 +293,38 @@ def phase_kernels(cfg, results: dict) -> dict:
                 for kk, vv in v.items()} for k, v in out.items()}
 
 
+def _keystream_at_largest_leaf(cfg, keys, err) -> dict:
+    """B1 at the weights phase's largest leaf (one counter per 64 B
+    block, as ``protect`` launches it), compared with its plain version
+    over the first 655,360 blocks."""
+    import torch
+
+    from repro_torch.kernels.aes_ctr import kernel as aes_k
+    from repro_torch.kernels.aes_ctr import ref as aes_ref
+    path, n = _largest_leaf(cfg)
+    counters = torch.randint(-2 ** 31, 2 ** 31, (n, 4), dtype=torch.int32,
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(6))
+    got = aes_k.aes_ctr_keystream(counters, keys.round_keys)
+    torch.cuda.synchronize()
+    m = min(n, 655360)
+    e = err(got[:m], aes_ref.aes_ctr_keystream_lanes_ref(counters[:m],
+                                                         keys.round_keys))
+    if e:
+        raise AssertionError(f"aes_ctr_keystream differs from plain at the "
+                             f"largest leaf: {e}")
+    del got
+    b_ms, b_by = bound(n * 32 + 176 + 1024, n * AES_OPS_PER_BLOCK)
+    call = lambda: aes_k.aes_ctr_keystream(counters, keys.round_keys)
+    ms, timing = kernel_ms(call, "aes_ctr_keystream_kernel")
+    res = dict(leaf=path, n=n, compared_blocks=m, max_abs_err=e, ms=ms,
+               timing=timing, call_ms=median_ms(call), bound_ms=b_ms,
+               bound_by=b_by)
+    del counters, call
+    torch.cuda.empty_cache()
+    return res
+
+
 def _tenant_registry(device, rotate: int = 0):
     """4 tenants over ``KeyHierarchy(0)`` (a K = 12 row bank), with
     ``rotate`` rotations of tenant 1 so both of its epoch rows hold keys."""
@@ -300,21 +359,33 @@ def _mixed_kernels(dev, shapes, u32, err) -> dict:
 
     out = {}
     n = shapes["read"]
-    counters, r = u32((n, 4)), rows(n)
-    got = aes_k.aes_ctr_keystream_multi(counters, bank.round_keys, r)
-    torch.cuda.synchronize()
-    e = err(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
-        counters, bank.round_keys, r))
-    if e:
-        raise AssertionError(f"aes_ctr_keystream_multi differs from plain: "
-                             f"{e}")
-    # Counters in, a row per block, lanes out; the bank once.
-    b_ms, b_by = bound(n * 36 + 176 * k + 256, n * AES_OPS_PER_BLOCK)
-    call = lambda: aes_k.aes_ctr_keystream_multi(counters, bank.round_keys, r)
-    ms, timing = kernel_ms(call, "aes_ctr_keystream_multi_kernel")
+    counters = u32((n, 4))
+    # Rows drawn per block (every warp mixes rows; the row's comparable
+    # number), then one row per page of 8,192 blocks, as the serving
+    # path builds them.
+    page = shapes["read"] // (SERVE["n_requests"] * PAGES_PER_SLOT)
+    row_sets = {"random": rows(n),
+                "page_uniform": rows(n // page).repeat_interleave(page)}
+    timed = {}
+    for kind, r in row_sets.items():
+        got = aes_k.aes_ctr_keystream_multi(counters, bank.round_keys, r)
+        torch.cuda.synchronize()
+        e = err(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+            counters, bank.round_keys, r))
+        if e:
+            raise AssertionError(f"aes_ctr_keystream_multi ({kind} rows) "
+                                 f"differs from plain: {e}")
+        call = lambda: aes_k.aes_ctr_keystream_multi(counters,
+                                                     bank.round_keys, r)
+        ms, timing = kernel_ms(call, "aes_ctr_keystream_multi_kernel")
+        timed[kind] = dict(ms=ms, timing=timing, call_ms=median_ms(call))
+    r = row_sets["random"]
+    # Counters in, a row per block, lanes out; the bank and the 1 KB
+    # T-table once.
+    b_ms, b_by = bound(n * 36 + 176 * k + 1024, n * AES_OPS_PER_BLOCK)
     out["aes_ctr_keystream_multi"] = dict(
-        n=n, k=k, max_abs_err=e, ms=ms, timing=timing,
-        call_ms=median_ms(call),
+        n=n, k=k, max_abs_err=e, **timed["random"],
+        page_uniform_rows=dict(page_blocks=page, **timed["page_uniform"]),
         plain_ms=median_ms(lambda: aes_ref.aes_ctr_keystream_multi_lanes_ref(
             counters, bank.round_keys, r), n=20),
         bound_ms=b_ms, bound_by=b_by)
@@ -367,7 +438,7 @@ def _largest_leaf(cfg) -> tuple:
 def _ptxas(name: str) -> list:
     from repro_torch.kernels import build
     return [line.strip() for line in build.ptxas_report(name).splitlines()
-            if "registers" in line or "spill" in line]
+            if any(w in line for w in ("registers", "spill", "entry"))]
 
 
 def _weights_kernels(cfg, dev, err) -> dict:
@@ -651,11 +722,13 @@ def _device_breakdown(prof, wall_ms: float, n: int, unit: str) -> dict:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.device_time_total / 1e3)
     busy = sum(by_name.values()) / n
-    crypto = sum(v for k, v in by_name.items()
-                 if any(sym in k for sym in CRYPTO_SYMBOLS)) / n
+    by_symbol = {sym: sum(v for k, v in by_name.items() if sym in k) / n
+                 for sym in CRYPTO_SYMBOLS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {f"profiled_{unit}_ms": wall_ms,
-            "device_busy_ms": busy, "crypto_kernel_ms": crypto,
+            "device_busy_ms": busy,
+            "crypto_kernel_ms": sum(by_symbol.values()),
+            "crypto_kernel_ms_by_symbol": by_symbol,
             "device_idle_share": (1 - busy / wall_ms) if kernels else None,
             f"kernel_launches_per_{unit}": len(kernels) / n,
             f"top_kernels_ms_per_{unit}": [(k[:90], v / n) for k, v in top]}

@@ -14,11 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "build_dir", "ptxas_report"]
+__all__ = ["SOURCES", "build", "load", "build_dir", "ptxas_report",
+           "sass_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
@@ -93,6 +96,30 @@ def ptxas_report(name: str) -> str:
     from the build of ``name``; empty if it was built elsewhere."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_counts(name: str) -> dict:
+    """``{kernel symbol: {"instructions": n, opcode: n, ...}}`` from
+    ``cuobjdump -sass`` of the built library of ``name``; empty where
+    the toolkit has no ``cuobjdump``."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = counts.setdefault(head.group(1), Counter())
+            continue
+        inst = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                        line)
+        if fn is not None and inst:
+            fn["instructions"] += 1
+            fn[inst.group(1)] += 1
+    return {k: dict(v) for k, v in counts.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

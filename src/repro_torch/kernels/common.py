@@ -47,15 +47,18 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: start is not 16-byte aligned")
 
 
-def check_shared_bytes(kernel: str, n_bytes: int, k: int) -> None:
+def check_shared_bytes(kernel: str, n_bytes: int, k: int,
+                       max_rows: int | None = None) -> None:
     """Raise when a bank of ``k`` rows needs more shared memory than a
-    thread block has: the kernel would not launch."""
+    thread block has: the kernel would not launch.  ``max_rows``, where
+    given, is the largest bank that fits, for the message."""
     if n_bytes > MAX_SHARED_BYTES:
+        limit = "" if max_rows is None else f" (at most {max_rows} rows)"
         raise ValueError(
             f"{kernel}: a key bank of {k} rows needs {n_bytes} bytes of "
             f"shared memory per thread block; Hopper allows "
-            f"{MAX_SHARED_BYTES}.  Use fewer tenants or a smaller retain "
-            f"window, or split the call by bank row")
+            f"{MAX_SHARED_BYTES}{limit}.  Use fewer tenants or a smaller "
+            f"retain window, or split the call by bank row")
 
 
 def stream_handle() -> int:

@@ -59,6 +59,105 @@ def test_keystream_equals_plain(card, n):
         words, keys.round_keys))
 
 
+
+# Sizes at the edges of the persistent grid's stride: "grid" is the
+# launch's thread blocks x 256 threads on this card.
+EDGE_SIZES = [1, 255, 256, 257, "grid-1", "grid", "grid+1", 655360]
+
+
+def _edge_n(size, k=None) -> int:
+    if isinstance(size, int):
+        return size
+    return aes_k.grid_blocks(k) * 256 + {"grid-1": -1, "grid": 0,
+                                         "grid+1": 1}[size]
+
+
+@pytest.mark.parametrize("size", EDGE_SIZES)
+@pytest.mark.parametrize("multi", [False, True])
+def test_keystream_at_grid_stride_edges(card, size, multi):
+    rng = np.random.default_rng(31)
+    if multi:
+        _, round_keys, _, _ = _bank(card, 12)
+        n = _edge_n(size, 12)
+        words = _u32(rng, (n, 4), card)
+        rows = _rows(rng, n, 12, card, mixed=True)
+        got = aes_k.aes_ctr_keystream_multi(words, round_keys, rows)
+        want = aes_ref.aes_ctr_keystream_multi_lanes_ref(words, round_keys,
+                                                         rows)
+    else:
+        keys = SecureKeys.derive(31, device=card)
+        n = _edge_n(size)
+        words = _u32(rng, (n, 4), card)
+        got = aes_k.aes_ctr_keystream(words, keys.round_keys)
+        want = aes_ref.aes_ctr_keystream_lanes_ref(words, keys.round_keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+FIPS_C1_WORDS = [0x00112233, 0x44556677, 0x8899AABB, 0xCCDDEEFF]
+FIPS_C1_OUT = "69c4e0d86a7b0430d8cdb78070b4c55a"
+
+
+@pytest.mark.parametrize("where", ["one_key", "k1", "row7_of_12"])
+def test_keystream_fips197_c1(card, where):
+    """FIPS-197 C.1 (key 00..0f, plaintext 00112233..ff) through the
+    single-key kernel, and through the mixed one with the key alone in a
+    one-row bank or in row 7 of a 12-row bank."""
+    from repro_torch.core.aes import key_expansion_np
+    rk = torch.from_numpy(key_expansion_np(np.arange(16))).to(card)
+    words = torch.from_numpy(
+        np.array([FIPS_C1_WORDS], np.uint32).view(np.int32)).to(card)
+    if where == "one_key":
+        got = aes_k.aes_ctr_keystream(words, rk)
+    else:
+        k, row = (1, 0) if where == "k1" else (12, 7)
+        bank = torch.from_numpy(np.random.default_rng(32).integers(
+            0, 256, (k, 11, 16), dtype=np.uint8)).to(card)
+        bank[row] = rk
+        got = aes_k.aes_ctr_keystream_multi(
+            words, bank, torch.full((1,), row, dtype=torch.int32,
+                                    device=card))
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes().hex() == FIPS_C1_OUT
+
+
+@pytest.mark.parametrize("rows_kind", ["page_uniform", "per_lane_random"])
+def test_keystream_multi_row_patterns(card, rows_kind):
+    """Rows as the serving path builds them (one row per 8,192-block
+    page) and rows drawn per block, so every warp mixes rows."""
+    _, round_keys, _, _ = _bank(card, 12)
+    rng = np.random.default_rng(33)
+    n = 655360
+    if rows_kind == "page_uniform":
+        rows_np = np.repeat(rng.integers(0, 12, n // 8192), 8192)
+    else:
+        rows_np = rng.integers(0, 12, n)
+    rows = torch.from_numpy(rows_np.astype(np.int32)).to(card)
+    words = _u32(rng, (n, 4), card)
+    got = aes_k.aes_ctr_keystream_multi(words, round_keys, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+        words, round_keys, rows))
+
+
+def test_keystream_multi_bank_at_the_shared_memory_limit(card):
+    k = aes_k.MAX_BANK_ROWS
+    assert (aes_k.TABLE_SHARED_BYTES + 176 * k <= 232448
+            < aes_k.TABLE_SHARED_BYTES + 176 * (k + 1))
+    rng = np.random.default_rng(34)
+    n = 4099
+    bank = torch.from_numpy(
+        rng.integers(0, 256, (k, 11, 16), dtype=np.uint8)).to(card)
+    rows = _rows(rng, n, k, card, mixed=True)
+    words = _u32(rng, (n, 4), card)
+    got = aes_k.aes_ctr_keystream_multi(words, bank, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_ref.aes_ctr_keystream_multi_lanes_ref(
+        words, bank, rows))
+    over = torch.zeros((k + 1, 11, 16), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match=f"at most {k} rows"):
+        aes_k.aes_ctr_keystream_multi(words, over, rows)
+
 @pytest.mark.parametrize("s", [1, 4, 11])
 @pytest.mark.parametrize("write", [False, True])
 def test_fused_equals_plain(card, s, write):

@@ -29,6 +29,8 @@ from repro_torch.core import mac
 from repro_torch.core.bytesutil import i64
 from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.core.aes import SBOX_NP, key_expansion_np
+from repro_torch.kernels.aes_ctr import kernel as aes_kernel
 from repro_torch.kernels.aes_ctr import ops as aes_ops
 from repro_torch.kernels.aes_ctr import ref as aes_ref
 from repro_torch.kernels.common import check_operand, on_cpu
@@ -74,6 +76,122 @@ def test_keystream_matches_jax_kernel_and_ref(keys):
             == np.asarray(j_aes_ref.aes_ctr_keystream_lanes_ref(
                 jnp.asarray(words), jk.round_keys))).all()
 
+
+
+# A numpy model of the CUDA AES kernels' round structure
+# (csrc/aes_ctr.cu), with the T-table the wrappers ship to the card.
+
+def _byte_perm(x, y, sel: int) -> np.ndarray:
+    """CUDA's ``__byte_perm(x, y, sel)`` on u32 arrays: result byte i is
+    byte ``(sel >> 4 i) & 7`` of the eight bytes of (y:x)."""
+    x, y = np.broadcast_arrays(np.uint32(x), np.uint32(y))
+    src = [(x >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    src += [(y >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
+    return out
+
+
+def _rotl(x, bits: int) -> np.ndarray:
+    return (x << np.uint32(bits)) | (x >> np.uint32(32 - bits))
+
+
+def _model_shared_tables(te0) -> np.ndarray:
+    """The kernel's 64 KB of shared tables as u32 words: entry x is 256
+    bytes, Te0[x] once per lane at byte 4 L, Te2[x] = rotl16(Te0[x])
+    once per lane at byte 128 + 4 L."""
+    halves = np.stack([te0, _rotl(te0, 16)], axis=1)        # (256, 2)
+    return np.repeat(halves[:, :, None], 32, axis=2).reshape(-1)
+
+
+def _model_keystream(words, rk_words, te0) -> np.ndarray:
+    """(N, 4) u32 counter words and (N, 11, 4) u32 round-key words (each
+    block's schedule, little-endian words) -> (N, 4) u32 OTP lanes, the
+    way the kernel computes them: a byte swap per counter word, nine
+    T-table rounds whose lookup addresses are one byte permute with the
+    lane's offset, the last round's S bytes taken as byte 1 of Te0.
+    Block i runs in lane i % 32."""
+    mem = _model_shared_tables(te0)
+    lane = np.arange(len(words), dtype=np.uint32) % np.uint32(32)
+    off0, off2 = np.uint32(4) * lane, np.uint32(128) + np.uint32(4) * lane
+
+    def look(x, row, off):                 # look<row>
+        return mem[_byte_perm(x, off, 0x5504 | (row << 4)) // np.uint32(4)]
+
+    s = [_byte_perm(words[:, j], 0, 0x0123) ^ rk_words[:, 0, j]
+         for j in range(4)]
+    for r in range(1, 10):                 # round_col
+        cols = []
+        for c in range(4):
+            a, b, cc, d = (s[(c + i) % 4] for i in range(4))
+            odd = look(b, 1, off0) ^ look(d, 3, off2)
+            cols.append(look(a, 0, off0) ^ look(cc, 2, off2)
+                        ^ _rotl(odd, 8) ^ rk_words[:, r, c])
+        s = cols
+    out = []
+    for c in range(4):                     # last_col
+        t = [look(s[(c + i) % 4], i, off0) for i in range(4)]
+        lo = _byte_perm(t[0], t[1], 0x0051)
+        hi = _byte_perm(t[2], t[3], 0x0051)
+        out.append(_byte_perm(lo, hi, 0x5410) ^ rk_words[:, 10, c])
+    return np.stack(out, axis=1)
+
+
+def _table_case(case: str):
+    """(counter words, (K, 11, 16) schedules, rows) for one case."""
+    rng = np.random.default_rng(21)
+    if case == "fips197_c1":               # FIPS-197 appendix C.1
+        words = np.array([[0x00112233, 0x44556677, 0x8899AABB, 0xCCDDEEFF]],
+                         np.uint32)
+        return words, key_expansion_np(np.arange(16))[None], np.zeros(1, int)
+    k = 1 if case == "one_key" else 12
+    keys = rng.integers(0, 256, (k, 16), dtype=np.uint8)
+    bank = np.stack([key_expansion_np(key) for key in keys])
+    words = rng.integers(0, 2 ** 32, (97, 4), dtype=np.uint32)
+    return words, bank, rng.integers(0, k, 97)
+
+
+@pytest.mark.parametrize("case", ["one_key", "bank12", "fips197_c1"])
+def test_t_table_model_matches_jax_and_plain(case):
+    words, bank, rows = _table_case(case)
+    te0 = _np(aes_kernel.t_table("cpu"))
+    rk_words = bank.view("<u4").reshape(bank.shape[0], 11, 4)[rows]
+    got = _model_keystream(words, rk_words, te0)
+    want = np.empty_like(got)
+    for r in np.unique(rows):              # the JAX reference, row by row
+        sel = rows == r
+        want[sel] = np.asarray(j_aes_ref.aes_ctr_keystream_lanes_ref(
+            jnp.asarray(words[sel]), jnp.asarray(bank[r])))
+    assert (got == want).all()
+    if len(bank) == 1:
+        plain = aes_ref.aes_ctr_keystream_lanes_ref(_u32(words),
+                                                    torch.from_numpy(bank[0]))
+    else:
+        plain = aes_ref.aes_ctr_keystream_multi_lanes_ref(
+            _u32(words), torch.from_numpy(bank),
+            torch.from_numpy(rows.astype(np.int32)))
+    assert (_np(plain) == got).all()
+    if case == "fips197_c1":
+        assert got.view(np.uint8).tobytes().hex() == \
+            "69c4e0d86a7b0430d8cdb78070b4c55a"
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 3])
+def test_t_table_rotations_are_mix_columns(row):
+    """Te0 rotated left by 8 ``row`` bits is MixColumns of a column that
+    holds S[x] in ``row`` and zeros elsewhere; S[x] is byte 1 of Te0."""
+    te0 = aes_kernel.te0_table_np()
+    assert (_np(aes_kernel.t_table("cpu")) == te0).all()
+    s = SBOX_NP.astype(np.uint32)
+    x2 = ((s << 1) ^ np.where(s & 0x80, 0x1B, 0)) & 0xFF
+    coeffs = {1: s, 2: x2, 3: x2 ^ s}
+    mix = [[2, 3, 1, 1], [1, 2, 3, 1], [1, 1, 2, 3], [3, 1, 1, 2]]
+    want = sum(coeffs[mix[out][row]].astype(np.uint32) << np.uint32(8 * out)
+               for out in range(4))
+    got = te0 if row == 0 else _rotl(te0, 8 * row)
+    assert (got == want).all()
+    assert ((te0 >> np.uint32(8)) & np.uint32(0xFF) == s).all()
 
 def _fused_inputs(rng, jk, n, s):
     data = rng.integers(0, 2 ** 32, (n, 4 * s), np.uint32)
