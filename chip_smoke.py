@@ -38,24 +38,42 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              counts must be > 0.
 8. tenant_tamper — tenant B's slot given tenant A's pages: the next
              ``step()`` raises ``IntegrityError``.
-9. weights — the serve phase's full-width params through
+9. prefix  — the serve phase's weights through the secure prefix cache:
+             4 tenants (a rotation every 4 ticks), each with a 52-token
+             system prompt sent alone (miss + insert) and twice with a
+             12-token user turn (hit on 7 pages, copy-on-write, 12 replay
+             ticks); then tenant 0's prompt is reseal-shared with tenant
+             1, whose request with it must hit.  seda with and without the
+             kernels and ``off`` (in turns, twice each) give the same
+             tokens and prefix counters, all > 0; the mixed-key kernels
+             launch; the engine without the cache runs the same traffic
+             (tokens compared, not gated: bf16), and both run it once
+             more in float32 (compared, not gated).  After 3 ticks the
+             Merkle tree equals a rebuild node for node, every tenant's
+             audit proof verifies and a flipped leaf MAC is rejected.  A
+             flipped byte of a cached page fails the next hit; tenant 0's
+             cache page in tenant 1's slot fails; one 7-page copy is
+             timed; the smoke config (float32) with the cache gives the
+             tokens of the engine without it.
+10. weights — the serve phase's full-width params through
              ``SecureExecutor("seda")``: protect, then unprotect with the
              layer check, bit-equal and verified (median of 3 each, and
              one of each under a CUPTI trace); a flipped ciphertext byte
              and a stale VN (replay) fail the check; the protect runs
              the AES-CTR, otp_xor and NH kernels.  Then ``seda512`` once
              (plain wide B-AES, the NH kernel at L = 136).
-10. checkpoint — minitron-4b at full width and 2 layers saved as a
+11. checkpoint — minitron-4b at full width and 2 layers saved as a
              secure checkpoint, found by ``latest_step``, loaded and
              verified bit-equal; the engine serves the same tokens from
              the restored and the original weights; a flipped byte of a
              leaf file raises ``CheckpointError``.
-11. launch — the port's launcher (``repro_torch.launch.serve.main``) at
+12. launch — the port's launcher (``repro_torch.launch.serve.main``) at
              full width with 4 tenants and a rotation every tick, after
              the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
-             the deferred pool MAC OK.
+             the deferred pool MAC OK; ``--audit-proof-out`` writes one
+             proof per tenant, each verified against its root.
 
-Each path whose launches are reported (serve, tenants, weights) is
+Each path whose launches are reported (serve, tenants, prefix, weights) is
 driven with the counts set to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line and, last, the device line.
 
@@ -96,6 +114,14 @@ SINGLE_KEY = ("aes_ctr_keystream", "fused_crypt_mac", "fused_crypt_mac_write")
 WEIGHTS_KEY = ("aes_ctr_keystream", "otp_xor", "nh_hash_kernel_call")
 MIXED_KEY = ("aes_ctr_keystream_multi", "fused_crypt_mac_mixed",
              "fused_crypt_mac_write_mixed")
+# The prefix phase: per tenant a 52-token system prompt (6 full pages of
+# 8 and one of 4) and two 12-token user turns after it.
+PREFIX = dict(max_slots=8, page_tokens=8, pages_per_slot=10, n_pages=112,
+              prefix_cache_pages=32, rotate_every=4)
+SYSTEM_LEN, USER_LEN = 52, 12
+PREFIX_COUNTERS = ("prefix_hit_pages", "prefill_pages_skipped",
+                   "prefix_cow_pages", "prefix_inserted_pages",
+                   "prefix_shared_pages")
 
 
 def emit(obj) -> None:
@@ -847,6 +873,377 @@ def phase_tenant_tamper(arch, cfg, params) -> dict:
     raise AssertionError("a cross-tenant page read was not detected")
 
 
+def _prefix_traffic(vocab: int, system_len: int = SYSTEM_LEN,
+                    user_len: int = USER_LEN) -> tuple:
+    """``(systems, requests, shared)``: each tenant's system prompt;
+    ``(tenant, prompt)`` requests, the 4 system prompts alone first
+    (miss + insert), then twice each prompt with a user turn (hit +
+    copy-on-write + replay); and the request tenant 1 sends with tenant
+    0's system prompt after the share."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+
+    def tokens(n):
+        return list(map(int, rng.integers(1, vocab, n)))
+
+    systems = [tokens(system_len) for _ in range(N_TENANTS)]
+    requests = [(t, systems[t]) for t in range(N_TENANTS)]
+    requests += [(t, systems[t] + tokens(user_len))
+                 for _ in range(2) for t in range(N_TENANTS)]
+    return systems, requests, systems[0] + tokens(user_len)
+
+
+def _prefix_engine(arch, cfg, params, scheme, use_kernel, cache: bool,
+                   **kw):
+    from repro_torch.serve.engine import SecureServingEngine
+    registry = _tenant_registry("cuda")
+    kw = {**PREFIX, **kw}
+    if not cache:
+        kw.pop("prefix_cache_pages")
+    eng = SecureServingEngine(arch, cfg, params, scheme=scheme,
+                              use_kernel=use_kernel, registry=registry,
+                              prefix_cache=cache, **kw)
+    return eng, [registry.open_session(f"tenant-{t}")
+                 for t in range(N_TENANTS)]
+
+
+def _merkle_probe(eng, sessions) -> dict:
+    """Mid-run Merkle level checks: the incremental tree node for node
+    against a rebuild, every tenant's proof verified and one with a
+    flipped leaf MAC rejected."""
+    import dataclasses
+
+    from repro_torch.serve import merkle_pool as mkp
+    _tree_equals_rebuild(eng)
+    root = eng.merkle.root_hex()
+    pages = []
+    for s in sessions:
+        proof = eng.audit_proof(s)
+        if not proof.pages:
+            raise AssertionError(f"tenant {proof.tenant} has no resident "
+                                 "page to prove")
+        mkp.verify_proof(proof, expected_root=root, tenant=proof.tenant)
+        pages.append(len(proof.pages))
+    page = proof.pages[0]
+    mac = bytes([bytes.fromhex(page.mac)[0] ^ 1]) + bytes.fromhex(
+        page.mac)[1:]
+    bad = dataclasses.replace(proof, pages=(dataclasses.replace(
+        page, mac=mac.hex()),) + proof.pages[1:])
+    try:
+        mkp.verify_proof(bad, expected_root=root, tenant=proof.tenant)
+    except mkp.LeafMacError:
+        pass
+    else:
+        raise AssertionError("a proof with a flipped leaf MAC verified")
+    return {"tick": eng.tick, "proof_pages": pages}
+
+
+def _tree_equals_rebuild(eng) -> None:
+    import numpy as np
+
+    from repro_torch.serve import kv_pages as kvp
+    from repro_torch.serve import merkle_pool as mkp
+    rebuilt = mkp.build_tree(kvp.merkle_leaf_macs(eng.pool, eng.spec),
+                             eng._page_owners(),
+                             np.zeros(eng.n_pages, bool), shard=0)
+    if eng.merkle.snapshot() != rebuilt:
+        raise AssertionError("the incremental Merkle tree differs from a "
+                             "rebuild")
+
+
+def _prefix_once(arch, cfg, params, traffic, scheme, use_kernel,
+                 cache: bool = True, new_tokens: int = 16, **kw):
+    """The prefix traffic through one engine: the 12 requests (Merkle
+    checks after 3 ticks, not timed), the share of tenant 0's prompt
+    with tenant 1, and tenant 1's request with it."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    systems, requests, shared = traffic
+    eng, sessions = _prefix_engine(arch, cfg, params, scheme, use_kernel,
+                                   cache, **kw)
+    prefills = [0]
+    prefill = eng._prefill
+
+    def counted(seq):
+        prefills[0] += 1
+        return prefill(seq)
+
+    eng._prefill = counted
+    syncs = []                             # host time of each Merkle sync
+    sync = eng._merkle_sync
+
+    def timed_sync():
+        torch.cuda.synchronize()
+        leaves = eng.stats["merkle_leaf_updates"]
+        t = time.perf_counter()
+        sync()
+        syncs.append({"tick": eng.tick,
+                      "ms": (time.perf_counter() - t) * 1e3,
+                      "leaf_updates": eng.stats["merkle_leaf_updates"]
+                      - leaves})
+
+    eng._merkle_sync = timed_sync
+    torch.cuda.synchronize()
+    reset_launches()                       # the prefix path starts here
+    t0 = time.perf_counter()
+    rids = [eng.submit(prompt=p, max_new_tokens=new_tokens,
+                       session=sessions[t]) for t, p in requests]
+    for _ in range(3):
+        eng.step()
+    t1 = time.perf_counter()
+    probe = _merkle_probe(eng, sessions)
+    probe_s = time.perf_counter() - t1
+    eng.run()
+    n_shared = (eng.share_prefix(systems[0], from_session=sessions[0],
+                                 to_session=sessions[1]) if cache else 0)
+    hits0 = eng.stats["prefix_hit_pages"]
+    rids.append(eng.submit(prompt=shared, max_new_tokens=new_tokens,
+                           session=sessions[1]))
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - probe_s
+    launches = dict(LAUNCHES)              # ... and ends here
+    _tree_equals_rebuild(eng)
+    if not eng.deferred_check():
+        raise AssertionError("deferred pool MAC failed")
+    return eng, {
+        "tokens": [eng.requests[r].generated for r in rids],
+        "wall_s": wall, "ticks": eng.tick, "prefills": prefills[0],
+        "shared_pages": n_shared,
+        "shared_request_hit_pages": eng.stats["prefix_hit_pages"] - hits0,
+        "stats": dict(eng.stats), "launches": launches,
+        "merkle": {**probe, "syncs": syncs}}
+
+
+def phase_prefix(arch, cfg, results: dict) -> dict:
+    import torch
+    params = results["params"]
+    traffic = _prefix_traffic(cfg.vocab)
+    # In turns, twice each; the first cache-on kernel run is the prefix
+    # path whose launches count.
+    order = [("kernel", "seda", True, True), ("plain", "seda", False, True),
+             ("off", "off", False, True), ("no_cache", "seda", True, False)]
+    runs: dict = {key: [] for key, *_ in order}
+    tokens: dict = {}
+    main_eng = None
+    for key, scheme, use_kernel, cache in order + order[::-1]:
+        eng, run = _prefix_once(arch, cfg, params, traffic, scheme,
+                                use_kernel, cache)
+        if tokens.setdefault(key, run["tokens"]) != run["tokens"]:
+            raise AssertionError(f"{key}: tokens differ between two runs")
+        runs[key].append(run)
+        if main_eng is None:
+            main_eng = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    main = runs["kernel"][0]
+    counters = {key: [{c: r["stats"][c] for c in PREFIX_COUNTERS}
+                      for r in runs[key]] for key in ("kernel", "plain",
+                                                      "off")}
+    flat = [c for v in counters.values() for c in v]
+    if any(c != flat[0] for c in flat):
+        raise AssertionError(f"prefix counters differ: {counters}")
+    zero = [c for c in PREFIX_COUNTERS if main["stats"][c] <= 0]
+    if zero:
+        raise AssertionError(f"prefix counters at 0: {zero}")
+    if main["shared_request_hit_pages"] <= 0:
+        raise AssertionError("tenant 1's request missed the shared prefix")
+    zero = [k for k in MIXED_KEY if main["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"mixed-key kernels never launched on the "
+                             f"prefix path: {zero}")
+    if not (tokens["kernel"] == tokens["plain"] == tokens["off"]):
+        raise AssertionError("prefix tokens differ between seda+kernels, "
+                             "seda plain and off")
+    if any(len(t) != 16 for t in tokens["kernel"]):
+        raise AssertionError("wrong token counts")
+    agree = _agreement(tokens["kernel"], tokens["no_cache"])
+    copy = _time_insert_copy(main_eng, traffic)
+    cached_tamper = _tamper_cached_page(main_eng, traffic)
+    del main_eng
+    torch.cuda.empty_cache()
+    replay = _replay_cache_page_across_tenants(arch, cfg, params, traffic)
+    full_f32 = _prefix_full_f32(arch, cfg, params, traffic)
+    smoke = _prefix_smoke_f32()
+    results["prefix_launches"] = main["launches"]
+    pick = ("wall_s", "ticks", "prefills")
+    return {
+        "config": {**PREFIX, "tenants": N_TENANTS, "system_len": SYSTEM_LEN,
+                   "user_len": USER_LEN, "requests": len(traffic[1]) + 1},
+        "main_path": {k: main[k] for k in ("launches", "stats", "ticks",
+                                           "prefills", "shared_pages")},
+        "runs": {k: [{p: r[p] for p in pick} for r in v]
+                 for k, v in runs.items()},
+        "tokens_agree_with_no_cache": agree,
+        "tokens_agree_with_no_cache_f32": full_f32,
+        "tokens_per_request": 16,
+        "merkle": main["merkle"], "insert_copy": copy,
+        "cached_page_tamper": cached_tamper, "cross_tenant_replay": replay,
+        "smoke_f32": smoke}
+
+
+def _whole_chain(eng, traffic, tenant: int) -> tuple:
+    """``(tenant, chain)``: the given tenant's cached system prompt, or
+    the next tenant's whose whole 7-page chain is still cached (the
+    share may reclaim a tenant's least recently used pages)."""
+    for t in [tenant] + list(range(N_TENANTS)):
+        chain = eng.prefix_cache.match(t, traffic[0][t])
+        if len(chain) == 7:
+            return t, chain
+    raise AssertionError("no tenant's system prompt is wholly cached")
+
+
+def _agreement(got: list, want: list) -> list:
+    """Per request, the leading tokens two runs agree on."""
+    out = []
+    for x, y in zip(got, want):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        out.append(n)
+    return out
+
+
+def _prefix_full_f32(arch, cfg, params, traffic) -> list:
+    """The prefix traffic at full width in float32, cache on and off
+    (kernels on): per request the leading tokens the two agree on.
+    Printed, not gated: it tells bf16 rounding in the replayed KV from
+    a fault of the cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    runs = [_prefix_once(arch, cfg32, params32, traffic, "seda", True,
+                         cache)[1]["tokens"] for cache in (True, False)]
+    del params32
+    torch.cuda.empty_cache()
+    return _agreement(*runs)
+
+
+def _time_insert_copy(eng, traffic) -> dict:
+    """One 7-page copy of a cached chain into free pages under the same
+    cache binding (the kernels and shapes of an insert: the mixed-key
+    read of 7 pages padded to 10 lanes, then the write): host wall and
+    the device time of its kernels (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import kv_pages as kvp
+    tenant, chain = _whole_chain(eng, traffic, 2)
+    row = eng.registry.cache_row(tenant)
+    side = (tenant, row, kvp.PREFIX_ROLE)
+    dst = [eng.free_pages.pop() for _ in chain]
+
+    def copy():
+        if not eng._copy_pages([e.page_id for e in chain], dst, src=side,
+                               dst=side, lanes=eng.pages_per_slot):
+            raise AssertionError("the timed copy failed verification")
+
+    copy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        copy()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.free_pages.extend(dst)
+    kernels = _device_events(prof)
+    symbols = dict(zip(MIXED_KEY, ("aes_ctr_keystream_multi_kernel",
+                                   "fused_crypt_mac_mixed_kernel<false>",
+                                   "fused_crypt_mac_mixed_kernel<true>")))
+    by_symbol = {name: sum(e.device_time_total for e in kernels
+                           if sym in e.name) / 1e3
+                 for name, sym in symbols.items()}
+    return {"pages": len(chain), "lanes": eng.pages_per_slot,
+            "wall_ms": wall_ms,
+            "device_busy_ms": sum(e.device_time_total
+                                  for e in kernels) / 1e3,
+            "launches": len(kernels), "mixed_kernel_ms": by_symbol}
+
+
+def _tamper_cached_page(eng, traffic) -> dict:
+    """One flipped ciphertext byte of a cached page: the next hit on it
+    raises ``IntegrityError``."""
+    from repro_torch.serve.engine import IntegrityError
+    systems = traffic[0]
+    tenant, chain = _whole_chain(eng, traffic, 3)
+    page = chain[0].page_id
+    eng.pool.cts[0][page, 100] ^= 0x08
+    eng.submit(prompt=systems[tenant] + [7] * USER_LEN, max_new_tokens=4,
+               session=eng.registry.open_session(f"tenant-{tenant}"))
+    try:
+        eng.run()
+    except IntegrityError as e:
+        return {"page": int(page), "raised": type(e).__name__,
+                "message": str(e)}
+    raise AssertionError("a flipped byte of a cached page was not "
+                         "detected")
+
+
+def _replay_cache_page_across_tenants(arch, cfg, params, traffic) -> dict:
+    """Tenant 0's cache page replayed into tenant 1's slot: the next
+    tick raises ``IntegrityError``."""
+    import numpy as np
+
+    from repro_torch.serve import kv_pages as kvp
+    from repro_torch.serve.engine import IntegrityError
+    eng, sessions = _prefix_engine(arch, cfg, params, "seda", True, True)
+    eng.submit(prompt=traffic[0][0], max_new_tokens=4, session=sessions[0])
+    eng.run()
+    entry = eng.prefix_cache.match(0, traffic[0][0])[0]
+    rng = np.random.default_rng(6)
+    eng.submit(prompt=list(map(int, rng.integers(1, cfg.vocab, 20))),
+               max_new_tokens=8, session=sessions[1], share_prefix=False)
+    eng.step()
+    slot = next(s for s in eng.slots if s is not None)
+    slot.pages[0] = entry.page_id
+    slot.page_epochs[0] = kvp.PREFIX_ROLE
+    try:
+        eng.step()
+    except IntegrityError as e:
+        return {"page": int(entry.page_id), "raised": type(e).__name__,
+                "message": str(e)}
+    raise AssertionError("tenant 0's cache page read in tenant 1's slot "
+                         "was not detected")
+
+
+def _prefix_smoke_f32() -> dict:
+    """The smoke config (float32) with the kernels: the prefix traffic
+    (system prompts of 7, turns of 2 tokens, pages of 4) gives the
+    tokens of the engine without the cache."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    arch = get_arch("minitron-4b")
+    cfg = arch.make_smoke_config()
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    traffic = _prefix_traffic(cfg.vocab, system_len=7, user_len=2)
+    kw = dict(max_slots=4, page_tokens=4, pages_per_slot=4, n_pages=40,
+              prefix_cache_pages=12)
+    got = {}
+    for cache in (True, False):
+        _, run = _prefix_once(arch, cfg, params, traffic, "seda", True,
+                              cache, new_tokens=6, **kw)
+        got[cache] = run
+    if got[True]["tokens"] != got[False]["tokens"]:
+        raise AssertionError(f"smoke: cache-on tokens {got[True]['tokens']} "
+                             f"!= no-cache {got[False]['tokens']}")
+    if got[True]["stats"]["prefix_hit_pages"] <= 0:
+        raise AssertionError("smoke: no prefix hit")
+    return {"config": cfg.name, "requests": len(got[True]["tokens"]),
+            "stats": {c: got[True]["stats"][c] for c in PREFIX_COUNTERS},
+            "tokens_equal_no_cache": True}
+
+
 def _timed(fn) -> tuple:
     """``(fn(), wall ms)``, the wall clock around work that ends in a
     device sync."""
@@ -1045,28 +1442,55 @@ def phase_checkpoint(arch, cfg, results: dict) -> dict:
 
 def phase_launch(results: dict) -> dict:
     import gc
+    import shutil
+    import tempfile
 
     import torch
 
     from repro_torch.launch import serve as launch
+    from repro_torch.serve import merkle_pool as mkp
     results.pop("params", None)            # free the earlier model
     gc.collect()
     torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="launch_smoke_", dir=ROOT / "build")
     argv = ["--arch", "minitron-4b", "--engine", "paged", "--scheme", "seda",
             "--batch", str(SERVE["n_requests"]),
             "--prompt-len", str(SERVE["prompt_len"]),
             "--gen-len", str(SERVE["new_tokens"]),
-            "--tenants", str(N_TENANTS), "--rotate-every", "1"]
-    out = launch.main(argv)
+            "--tenants", str(N_TENANTS), "--rotate-every", "1",
+            "--audit-proof-out", str(Path(tmp, "proofs.json"))]
+    try:
+        out = launch.main(argv)
+        bundle = json.loads(Path(tmp, "proofs.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     shape = tuple(out["tokens"].shape)
     if shape != (SERVE["n_requests"], SERVE["new_tokens"]):
         raise AssertionError(f"launcher served tokens of shape {shape}")
     if out["stats"]["fused_mixed_ticks"] <= 0 or not out["deferred_mac_ok"]:
         raise AssertionError(f"launcher run: {out['stats']}, deferred MAC "
                              f"{out['deferred_mac_ok']}")
+    # Each tenant's proof (taken after the first tick) verifies against
+    # the root it was issued under; the final root is a digest.
+    tenants = sorted(d["tenant"] for d in bundle["proofs"])
+    if tenants != list(range(N_TENANTS)):
+        raise AssertionError(f"proof bundle covers tenants {tenants}")
+    for d in bundle["proofs"]:
+        if not d["pages"]:
+            raise AssertionError(f"tenant {d['tenant']}'s proof is empty")
+        mkp.verify_proof(mkp.proof_from_dict(d), expected_root=d["root"],
+                         tenant=d["tenant"])
+    if len(bytes.fromhex(bundle["final"]["root"])) != mkp.HASH_BYTES:
+        raise AssertionError("the bundle's final root is not a digest")
     return {"argv": argv, "tokens_shape": shape,
             "tok_per_s": out["tok_per_s"], "stats": out["stats"],
-            "latency": out["latency"]}
+            "latency": out["latency"],
+            "audit_proofs": {"verified": len(bundle["proofs"]),
+                             "tick": bundle["tick"],
+                             "pages": [len(d["pages"])
+                                       for d in bundle["proofs"]],
+                             "final_root": bundle["final"]["root"]}}
 
 
 KERNEL_META = {
@@ -1117,6 +1541,7 @@ def main() -> int:
         ("tenants", lambda: phase_tenants(arch, cfg, results)),
         ("tenant_tamper",
          lambda: phase_tenant_tamper(arch, cfg, results["params"])),
+        ("prefix", lambda: phase_prefix(arch, cfg, results)),
         ("weights", lambda: phase_weights(results)),
         ("checkpoint", lambda: phase_checkpoint(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),

@@ -24,19 +24,28 @@ the ``--seed`` session keys; without one it serves the fresh init::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --ckpt-dir /path/to/ckpts
 
+``--audit-proof-out F`` admits the batch with one tick, takes one Merkle
+membership proof per session (per tenant; one for the whole pool
+single-tenant), verifies each as a tenant would, and after the run
+writes them with the final Merkle root to ``F`` as JSON::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --tenants 2 --audit-proof-out proofs.json
+
 Runs on the card unless ``--device cpu``.  Unlike the reference
 launcher, the engine is built with ``use_kernel=True``: on the card the
 ``seda`` crossings run the CUDA kernels (on the CPU, their plain
 versions).  Fresh weights are random, from a ``torch.Generator`` seeded
 with ``--seed`` (not the reference's JAX draw).  Not accepted yet,
 because their modules are not ported: ``--engine simple``, ``--shards``,
-``--fault-tolerance``, and the logging, observability, SLO and audit
+``--fault-tolerance``, and the logging, observability, SLO and audit-log
 flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -80,6 +89,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve the newest secure checkpoint in this "
                          "directory (verified with the --seed keys)")
+    ap.add_argument("--audit-proof-out", default=None, metavar="PATH",
+                    help="after the first tick, take and verify one Merkle "
+                         "membership proof per session; write them and "
+                         "the final root here as JSON")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     return ap
@@ -136,6 +149,15 @@ def _serve_paged(arch, cfg, params, args, device) -> dict:
         session = sessions[i % len(sessions)] if sessions else None
         rids.append(eng.submit(prompt=prompt, max_new_tokens=args.gen_len,
                                session=session))
+    proofs = None
+    if args.audit_proof_out:
+        # One tick admits the batch; every session is then resident and
+        # proves membership against the live root, checked here exactly
+        # as a tenant would, keyless.
+        eng.step()
+        proofs = _capture_audit_proofs(eng, sessions)
+        print(f"[serve] {proofs['verified']} session proofs captured + "
+              f"verified at tick {proofs['tick']}", flush=True)
     t0 = time.perf_counter()
     done = eng.run()
     if device.type == "cuda":
@@ -157,8 +179,27 @@ def _serve_paged(arch, cfg, params, args, device) -> dict:
               f"p95={done.latency['p95_ttft_ticks']:.1f} "
               f"p99={done.latency['p99_ttft_ticks']:.1f}", flush=True)
     toks = np.asarray([done[r].generated for r in rids], np.int32)
-    return {"tokens": toks, "tok_per_s": rate, "stats": stats,
-            "latency": done.latency, "deferred_mac_ok": bool(mac_ok)}
+    out = {"tokens": toks, "tok_per_s": rate, "stats": stats,
+           "latency": done.latency, "deferred_mac_ok": bool(mac_ok)}
+    if args.audit_proof_out:
+        proofs["final"] = {"root": eng.merkle.root_hex()}
+        with open(args.audit_proof_out, "w") as f:
+            json.dump(proofs, f, indent=1)
+        print(f"[serve] audit-proof bundle ({len(proofs['proofs'])} proofs) "
+              f"-> {args.audit_proof_out}", flush=True)
+        out["audit_proofs"] = proofs
+    return out
+
+
+def _capture_audit_proofs(eng, sessions) -> dict:
+    """One audit proof per session (the whole pool single-tenant), each
+    verified in place; raises on the first that fails."""
+    from repro_torch.serve import merkle_pool as mkp
+    proofs = [eng.audit_proof(session) for session in (sessions or [None])]
+    for p in proofs:
+        mkp.verify_proof(p, expected_root=p.root, tenant=p.tenant)
+    return {"tick": eng.tick, "verified": len(proofs),
+            "proofs": [p.to_dict() for p in proofs]}
 
 
 if __name__ == "__main__":

@@ -39,14 +39,27 @@ A tick whose pages all resolve to one bank row runs the single-key
 route (``uniform_fast_ticks``); any other tenant tick runs the
 mixed-key kernels when the spec qualifies (``fused_mixed_ticks``).
 
-An integrity failure raises :class:`IntegrityError`.  The prefix cache,
-fault containment, the Merkle level, observability and sharding are not
-ported yet.
+**Shared-prefix cache.**  With ``prefix_cache=True`` (tenant mode) a
+prompt whose leading pages an earlier same-tenant request sealed skips
+their prefill: the cached pages go read-only into the slot, the rest of
+the prompt is teacher-forced through the batched decode, and the first
+dirty write to a shared page copies it into a private page first
+(copy-on-write).  Tenants share only through :meth:`share_prefix`.
+
+**Merkle level.**  Unless ``merkle=False`` the engine keeps an
+incremental SHA-256 tree over the page MACs
+(:class:`repro_torch.serve.merkle_pool.MerklePagePool`), synced at the
+deferred-check cadence, and :meth:`audit_proof` gives a session an
+O(log n) membership proof for its resident pages.
+
+An integrity failure raises :class:`IntegrityError`.  Fault containment,
+observability and sharding are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -61,15 +74,20 @@ from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import kv_pages as kvp
+from repro_torch.serve import merkle_pool as mkp
 from repro_torch.serve.serve_step import greedy_sample
 
 __all__ = ["IntegrityError", "Request", "RunResult", "SecureServingEngine",
-           "SubmitRequest", "latency_percentiles"]
+           "SubmitAPI", "SubmitRequest", "latency_percentiles"]
 
 STAT_NAMES = ("admitted", "decode_steps", "prefill_compiles",
               "decode_bucket_compiles", "uniform_fast_ticks",
               "fused_mixed_ticks", "fused_write_ticks", "decode_page_reads",
-              "deferred_checks", "preemptions", "rotations", "reseals")
+              "deferred_checks", "preemptions", "rotations", "reseals",
+              "prefix_hit_pages", "prefill_pages_skipped",
+              "prefix_cow_pages", "prefix_inserted_pages",
+              "prefix_shared_pages", "merkle_root_updates",
+              "merkle_leaf_updates", "audit_proofs")
 
 
 class IntegrityError(RuntimeError):
@@ -87,6 +105,7 @@ class Request:
     submit_tick: int = 0
     first_tick: Optional[int] = None
     done_tick: Optional[int] = None
+    share_prefix: bool = True       # may use / populate the prefix cache
 
     @property
     def done(self) -> bool:
@@ -95,11 +114,55 @@ class Request:
 
 @dataclasses.dataclass
 class SubmitRequest:
-    """The argument object of :meth:`SecureServingEngine.submit`."""
+    """The argument object of :meth:`SecureServingEngine.submit`.
+
+    ``share_prefix=False`` opts a request out of the shared-prefix cache
+    both ways: it neither reads cached pages nor seals its prefix in.
+    """
 
     prompt: list
     max_new_tokens: int = 16
     session: Optional[object] = None    # SessionHandle in tenant mode
+    share_prefix: bool = True
+
+
+class SubmitAPI:
+    """The keyword-only ``submit()``: subclasses implement
+    ``_submit(SubmitRequest) -> rid``.  The legacy positional form
+    ``submit(prompt, max_new_tokens)`` still works, with a
+    :class:`DeprecationWarning`."""
+
+    def _submit(self, request: SubmitRequest) -> int:
+        raise NotImplementedError
+
+    def submit(self, request=None, /, *legacy, **kw) -> int:
+        """Queue one request; returns its rid.
+
+        ``submit(SubmitRequest(...))`` or
+        ``submit(prompt=toks, max_new_tokens=8, session=sess)``.
+        """
+        if isinstance(request, SubmitRequest):
+            if legacy or kw:
+                raise TypeError("submit(SubmitRequest) takes no other "
+                                "arguments")
+            return self._submit(request)
+        if request is not None:
+            warnings.warn(
+                "positional submit(prompt, ...) is deprecated; pass a "
+                "SubmitRequest or keyword arguments",
+                DeprecationWarning, stacklevel=2)
+            if "prompt" in kw:
+                raise TypeError("submit() got prompt twice")
+            kw["prompt"] = request
+            if legacy:
+                if len(legacy) > 1 or "max_new_tokens" in kw:
+                    raise TypeError("submit() takes at most prompt and "
+                                    "max_new_tokens positionally")
+                kw["max_new_tokens"] = legacy[0]
+        elif legacy:
+            raise TypeError("submit() got positional arguments but no "
+                            "prompt")
+        return self._submit(SubmitRequest(**kw))
 
 
 class RunResult(dict):
@@ -142,6 +205,14 @@ class _Slot:
     tenant: object = None           # tenancy.registry.Tenant | None
     # Key epoch each page was last sealed under (tenant mode).
     page_epochs: list = dataclasses.field(default_factory=list)
+    # Shared prefix: the first ``shared_n`` pages are read-only cache
+    # pages (epoch word PREFIX_ROLE) pinned through ``shared_entries``;
+    # ``replay`` holds the prompt tokens the skipped prefill still owes
+    # the KV cache (teacher-forced; the sample of the LAST replay step
+    # is the first real output).
+    shared_n: int = 0
+    shared_entries: list = dataclasses.field(default_factory=list)
+    replay: deque = dataclasses.field(default_factory=deque)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -156,7 +227,7 @@ def _bucket_len(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-class SecureServingEngine:
+class SecureServingEngine(SubmitAPI):
     """Batched secure decoding with paged, MAC-protected KV residency.
 
     ::
@@ -177,6 +248,10 @@ class SecureServingEngine:
         eng.submit(prompt=p, max_new_tokens=8,
                    session=reg.open_session("alice"))
         eng.rotate("alice")         # live key rotation
+
+    ``prefix_cache=True`` (registry required) adds the content-addressed
+    :class:`repro_torch.serve.kv_pages.PrefixCache` of at most
+    ``prefix_cache_pages`` pages (default a quarter of the pool).
     """
 
     def __init__(self, arch, cfg, params, *, scheme: str = "seda",
@@ -184,7 +259,10 @@ class SecureServingEngine:
                  pages_per_slot: int = 8, n_pages: Optional[int] = None,
                  keys: Optional[SecureKeys] = None,
                  use_kernel: bool = False, defer_interval: int = 16,
-                 registry=None, rotate_every: int = 0, device=None):
+                 registry=None, rotate_every: int = 0,
+                 prefix_cache: bool = False,
+                 prefix_cache_pages: Optional[int] = None,
+                 merkle: bool = True, device=None):
         if arch.kind != "lm":
             raise ValueError("the paged serving engine supports decoder-only "
                              "LMs")
@@ -193,6 +271,9 @@ class SecureServingEngine:
         if rotate_every and registry is None:
             raise ValueError("rotate_every needs a tenant registry — there "
                              "is no key hierarchy to rotate without one")
+        if prefix_cache and registry is None:
+            raise ValueError("prefix_cache needs a tenant registry — cache "
+                             "pages are sealed under per-tenant cache keys")
         self.device = resolve_device(device)
         self.registry = registry
         self.rotate_every = rotate_every
@@ -228,12 +309,21 @@ class SecureServingEngine:
             n_pages=self.n_pages, max_slots=max_slots, max_len=self.max_len,
             use_kernel=use_kernel)
         self.page_io = kvp.PageIO(self.spec, self.keys)
+        self.prefix_cache = None
+        if prefix_cache:
+            cap = (prefix_cache_pages if prefix_cache_pages is not None
+                   else max(1, self.n_pages // 4))
+            self.prefix_cache = kvp.PrefixCache(page_tokens, cap)
         cfg_s = SCHEMES[scheme]
         self.policy = (multilevel.SEDA_DEFAULT if cfg_s.verify == "layer"
                        else multilevel.SGX_LIKE if cfg_s.emulate_tree
                        else multilevel.MGX_LIKE)
 
+        self._pool_listeners: list = []
         self.pool = kvp.init_pool(self.spec, self.device)
+        # Crossings write the pool in place: every write is a pool update.
+        self.page_io.write_listeners.append(
+            lambda pool: self._notify_pool(pool, pool))
         self.waiting: deque = deque()           # single-tenant FIFO
         self._tenant_waiting: dict = {}         # tenant idx -> deque
         self._vtime: dict = {}                  # tenant idx -> virtual time
@@ -249,6 +339,17 @@ class SecureServingEngine:
         self.stats: dict = {name: 0 for name in STAT_NAMES}
         self.page_table = kvp.TwoLevelPageTable(max_slots, pages_per_slot)
         self._decode_fns: dict = {}
+        # Auditable Merkle level over the page MACs: the listener is
+        # O(1); hashing waits for _tick_end's sync.  No frame is ever
+        # quarantined until fault containment is ported.
+        self.merkle = None
+        if merkle:
+            self.merkle = mkp.MerklePagePool(
+                self.n_pages, shard=self.spec.shard,
+                leaf_fn=lambda pool: kvp.merkle_leaf_macs(pool, self.spec),
+                owners_fn=self._page_owners)
+            self.attach_pool_listener(self.merkle.on_pool_update)
+            self.merkle.on_pool_update(None, self.pool)
         if registry is not None:
             # Every engine sharing the registry reacts to a rotation,
             # whoever triggers it: the pre hook reseals pages about to
@@ -256,6 +357,28 @@ class SecureServingEngine:
             # the post hook preempts anything a reseal missed.
             registry.attach_rotation_hook(self._pre_rotation, pre=True)
             registry.attach_rotation_hook(self._on_rotation)
+
+    # -- pool updates --------------------------------------------------------
+
+    @property
+    def pool(self) -> kvp.PagedKVPool:
+        return self._pool
+
+    @pool.setter
+    def pool(self, new_pool: kvp.PagedKVPool) -> None:
+        old = getattr(self, "_pool", None)
+        self._pool = new_pool
+        self._notify_pool(old, new_pool)
+
+    def _notify_pool(self, old, new) -> None:
+        for listener in self._pool_listeners:
+            listener(old, new)
+
+    def attach_pool_listener(self, listener) -> None:
+        """``listener(old_pool, new_pool)`` runs on every pool update: a
+        new pool assigned, or a crossing's in-place write (then ``old``
+        is ``new``)."""
+        self._pool_listeners.append(listener)
 
     # -- decode / prefill builders -----------------------------------------
 
@@ -314,17 +437,7 @@ class SecureServingEngine:
 
     # -- public API ---------------------------------------------------------
 
-    def submit(self, request: Optional[SubmitRequest] = None, /, **kw) -> int:
-        """Queue one request; returns its rid.
-
-        ``submit(SubmitRequest(...))`` or
-        ``submit(prompt=toks, max_new_tokens=8)``.
-        """
-        if request is None:
-            request = SubmitRequest(**kw)
-        elif not isinstance(request, SubmitRequest) or kw:
-            raise TypeError("submit() takes a SubmitRequest or keyword "
-                            "arguments only")
+    def _submit(self, request: SubmitRequest) -> int:
         prompt = [int(t) for t in request.prompt]
         max_new_tokens = request.max_new_tokens
         session = request.session
@@ -354,7 +467,8 @@ class SecureServingEngine:
                              "tenant registry")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, prompt, max_new_tokens, submit_tick=self.tick)
+        req = Request(rid, prompt, max_new_tokens, submit_tick=self.tick,
+                      share_prefix=bool(request.share_prefix))
         self.requests[rid] = req
         if tenant is not None:
             if not self._tenant_active(tenant.index):
@@ -390,6 +504,135 @@ class SecureServingEngine:
             raise ValueError("rotate() needs a tenant registry")
         return self.registry.rotate(tenant_id)
 
+    def _page_owners(self) -> np.ndarray:
+        """Per-frame owning tenant index (-1: free, cache or
+        single-tenant), folded into the Merkle leaves so two tenants'
+        frames never swap proofs.  Cross-tenant sharing reseals into the
+        destination's own frames, so the map is single-valued."""
+        owners = np.full(self.n_pages, -1, np.int64)
+        for s in self.slots:
+            if s is None or s.tenant is None:
+                continue
+            for p in s.pages:
+                owners[p] = s.tenant.index
+        return owners
+
+    def audit_proof(self, session=None, *, rid: Optional[int] = None):
+        """O(log n) membership proof for a session's resident frames.
+
+        Returns a :class:`repro_torch.serve.merkle_pool.AuditProof`
+        (leaf MACs, sibling paths, the current Merkle root), which the
+        tenant checks with :func:`~repro_torch.serve.merkle_pool.
+        verify_proof` and nothing else.  In tenant mode it covers every
+        resident frame of the session's tenant (``rid=`` narrows it to
+        one request); single-tenant, every resident frame.
+        """
+        if self.merkle is None:
+            raise ValueError("audit_proof() needs the Merkle level "
+                             "(engine built with merkle=False)")
+        tenant = None
+        if rid is not None:
+            slot = next((s for s in self.slots
+                         if s is not None and s.req.rid == rid), None)
+            if slot is None:
+                raise KeyError(f"request {rid} has no resident slot")
+            tenant = slot.tenant
+        elif self.registry is not None:
+            if session is None:
+                raise PermissionError("multi-tenant engine: audit_proof() "
+                                      "needs a session handle")
+            tenant = self.registry.validate(session)
+        pages: list = []
+        for s in self.slots:
+            if s is None:
+                continue
+            if rid is not None and s.req.rid != rid:
+                continue
+            if tenant is not None and (s.tenant is None
+                                       or s.tenant.index != tenant.index):
+                continue
+            pages.extend(s.pages)
+        self._merkle_sync()
+        proof = self.merkle.audit_proof(
+            pages, tenant=None if tenant is None else tenant.index)
+        self.stats["audit_proofs"] += 1
+        return proof
+
+    def share_prefix(self, tokens, *, from_session, to_session) -> int:
+        """Reseal one tenant's cached prefix for another; returns the
+        pages shared.
+
+        The only cross-tenant sharing path (a cache match never crosses
+        tenants).  With valid sessions of both tenants, the source's
+        cached chain covering ``tokens`` is decrypt-verified under the
+        source cache binding and resealed page by page under the
+        destination's, then indexed on the destination's own chain.
+        """
+        if self.prefix_cache is None:
+            raise ValueError("share_prefix() needs prefix_cache=True")
+        src = self.registry.validate(from_session)
+        dst = self.registry.validate(to_session)
+        tokens = [int(t) for t in tokens]
+        pc = self.prefix_cache
+        src_chain = pc.match(src.index, tokens)
+        if not src_chain:
+            return 0
+        covered = sum(e.n_tokens for e in src_chain)
+        matched_dst, missing = pc.missing(dst.index, tokens[:covered])
+        if not missing:
+            return 0            # already cached for dst (or partial leaf)
+        src_entries = src_chain[len(matched_dst):]
+        short = pc.free_capacity()
+        if short < len(missing):
+            self.free_pages.extend(pc.reclaim(len(missing) - short))
+        k = min(len(missing), pc.free_capacity(), len(self.free_pages))
+        if k == 0:
+            return 0
+        missing, src_entries = missing[:k], src_entries[:k]
+        dst_pages = [self.free_pages.pop() for _ in range(k)]
+        ok = self._copy_pages(
+            [e.page_id for e in src_entries], dst_pages,
+            src=(src.index, self.registry.cache_row(src.index),
+                 kvp.PREFIX_ROLE),
+            dst=(dst.index, self.registry.cache_row(dst.index),
+                 kvp.PREFIX_ROLE),
+            lanes=max(self.pages_per_slot, k))
+        if not ok:
+            self.free_pages.extend(dst_pages)
+            raise IntegrityError(
+                f"reseal-on-share {src.tenant_id!r} -> {dst.tenant_id!r} "
+                f"failed source verification")
+        parent = matched_dst[-1] if matched_dst else None
+        for (key, n_tok), page_id in zip(missing, dst_pages):
+            parent = pc.insert(key, parent, page_id, n_tok)
+        self.stats["prefix_shared_pages"] += k
+        return k
+
+    def _copy_pages(self, src_ids: list, dst_ids: list, *, src: tuple,
+                    dst: tuple, lanes: int) -> bool:
+        """Reseal pages ``src_ids`` into ``dst_ids`` (one
+        :meth:`PageIO.copy`, padded to ``lanes`` with the scratch page);
+        ``src`` / ``dst`` are the ``(tenant index, bank row, epoch
+        word)`` of each side.  Returns the source verdict; nothing was
+        written when it is False."""
+        bank = self._bank()
+
+        def ids(pages):
+            out = np.full((lanes,), self.spec.scratch_page, np.int64)
+            out[: len(pages)] = pages
+            return out
+
+        def ctx(owner, row, epoch):
+            return kvp.PageKeyCtx.make(
+                bank, np.full((lanes,), row, np.int64),
+                np.full((lanes,), owner, np.int64),
+                np.full((lanes,), epoch, np.int64))
+
+        _, ok = self.page_io.copy(self.pool, ids(src_ids), ids(dst_ids),
+                                  vn_mod.kv_page_vn(self._next_epoch()),
+                                  ctx(*src), ctx(*dst))
+        return bool(ok)
+
     def _pre_rotation(self, tenant, new_epoch: int) -> None:
         """Eagerly reseal this engine's pages about to leave the key
         window, to the tenant's current epoch, one reseal per slot.
@@ -399,8 +642,10 @@ class SecureServingEngine:
         for i, slot in enumerate(self.slots):
             if slot is None or slot.tenant is not tenant:
                 continue
+            # Cache pages (epoch word PREFIX_ROLE) live outside the
+            # epoch window: their keys never rotate.
             stale = [j for j, e in enumerate(slot.page_epochs)
-                     if e < oldest_after]
+                     if not (e & kvp.PREFIX_ROLE) and e < oldest_after]
             if stale:
                 self._reseal_slot(i, stale, cur)
 
@@ -443,7 +688,8 @@ class SecureServingEngine:
         oldest_retained = new_epoch - self.registry.retain + 1
         for i, slot in enumerate(self.slots):
             if (slot is not None and slot.tenant is tenant
-                    and any(e < oldest_retained for e in slot.page_epochs)):
+                    and any(not (e & kvp.PREFIX_ROLE) and e < oldest_retained
+                            for e in slot.page_epochs)):
                 self._preempt(i)
         self.stats["rotations"] += 1
 
@@ -481,12 +727,24 @@ class SecureServingEngine:
             self.rotate(self.registry.by_index(idx).tenant_id)
         self._admit(finished)
         self._ensure_growth()
+        if self.prefix_cache is not None:
+            self._ensure_cow()
         return [i for i, s in enumerate(self.slots) if s is not None]
 
     def _tick_end(self) -> None:
         if (self.policy.deferred_model_mac and self.defer_interval
                 and self.tick % self.defer_interval == 0):
             self._deferred_check()
+        # Merkle upkeep shares the deferred cadence, not the scheme gate:
+        # every scheme keeps a page-MAC table.
+        if (self.merkle is not None and self.defer_interval
+                and self.tick % self.defer_interval == 0):
+            self._merkle_sync()
+
+    def _merkle_sync(self) -> None:
+        roots, leaves = self.merkle.sync()
+        self.stats["merkle_root_updates"] += roots
+        self.stats["merkle_leaf_updates"] += leaves
 
     def run(self, max_ticks: int = 100_000) -> RunResult:
         """Drive ticks until every submitted request finished."""
@@ -568,6 +826,14 @@ class SecureServingEngine:
 
     def _admit_one(self, req: Request, tenant, finished: list) -> None:
         seq = req.prompt + req.generated
+        if (self.prefix_cache is not None and tenant is not None
+                and req.share_prefix and len(seq) > 1):
+            # Match over seq[:-1]: at least one token is left to feed the
+            # decode loop (a hit generates through decode only).
+            hit = self.prefix_cache.match(tenant.index, seq[:-1])
+            if hit:
+                self._admit_hit(req, tenant, hit, seq)
+                return
         n_alloc = self._admission_pages(req)
         slot_idx = self.slots.index(None)
         pages = [self.free_pages.pop() for _ in range(n_alloc)]
@@ -601,7 +867,78 @@ class SecureServingEngine:
         req.generated.append(int(tok[0, 0]))
         if req.first_tick is None:
             req.first_tick = self.tick
+        if (self.prefix_cache is not None and tenant is not None
+                and req.share_prefix):
+            self._prefix_insert(tenant, seq, slot)
         self._maybe_finish(slot_idx, finished)
+
+    def _admit_hit(self, req: Request, tenant, hit: list, seq: list) -> None:
+        """Admit a request whose leading pages are cached: no prefill.
+
+        The matched chain's pages go read-only at the front of the slot
+        (``shared_n``, epoch word :data:`~repro_torch.serve.kv_pages.
+        PREFIX_ROLE`), the length is the tokens they cover, and the rest
+        of the prompt waits on ``slot.replay``: each tick teacher-forces
+        its next token through the batched decode (its KV lands in
+        private pages), and the sample of the LAST replay step is the
+        first output, as a full prefill's would be (causal KV at
+        position p depends only on tokens 0..p).
+        """
+        covered = sum(e.n_tokens for e in hit)
+        n_shared = len(hit)
+        slot_idx = self.slots.index(None)
+        self.prefix_cache.acquire(hit)
+        slot = _Slot(req, length=covered, pages=[e.page_id for e in hit],
+                     admit_seq=self._admit_seq + 1, tenant=tenant,
+                     page_epochs=[kvp.PREFIX_ROLE] * n_shared,
+                     shared_n=n_shared, shared_entries=list(hit),
+                     replay=deque(seq[covered:]))
+        self._admit_seq += 1
+        self.stats["admitted"] += 1
+        self.stats["prefix_hit_pages"] += n_shared
+        self.stats["prefill_pages_skipped"] += n_shared
+        self.slots[slot_idx] = slot
+        self.page_table.install(slot_idx, slot)
+        req.state = "running"
+
+    def _prefix_insert(self, tenant, seq: list, slot: _Slot) -> None:
+        """Seed the cache from a freshly prefilled slot (full miss only).
+
+        Copies the slot's leading chunk pages into free pages under the
+        tenant's cache binding (session epoch word -> ``PREFIX_ROLE``);
+        the slot keeps decoding on its private pages.  The copy checks
+        its source before it writes, so tampered session pages are never
+        laundered into valid cache MACs.
+        """
+        pc = self.prefix_cache
+        matched, missing = pc.missing(tenant.index, seq)
+        if matched or not missing:
+            return              # partial hits never extend the chain here
+        short = pc.free_capacity()
+        if short < len(missing):
+            self.free_pages.extend(pc.reclaim(len(missing) - short))
+        k = min(len(missing), pc.free_capacity(), len(self.free_pages))
+        if k == 0:
+            return
+        missing = missing[:k]
+        dst_pages = [self.free_pages.pop() for _ in range(k)]
+        epoch = tenant.current_epoch
+        ok = self._copy_pages(
+            slot.pages[:k], dst_pages,
+            src=(tenant.index, self.registry.key_row(tenant.index, epoch),
+                 epoch),
+            dst=(tenant.index, self.registry.cache_row(tenant.index),
+                 kvp.PREFIX_ROLE),
+            lanes=self.pages_per_slot)
+        if not ok:
+            self.free_pages.extend(dst_pages)
+            raise IntegrityError(
+                f"prefix-cache insert for tenant {tenant.tenant_id!r} "
+                f"failed source verification")
+        parent = None
+        for (key, n_tok), page_id in zip(missing, dst_pages):
+            parent = pc.insert(key, parent, page_id, n_tok)
+        self.stats["prefix_inserted_pages"] += k
 
     def _ensure_growth(self) -> None:
         order = sorted((i for i, s in enumerate(self.slots) if s is not None),
@@ -626,6 +963,54 @@ class SecureServingEngine:
                     continue
                 self._preempt(self._pick_victim(tenant))
 
+    def _ensure_cow(self) -> None:
+        """Copy-on-write every shared page this tick's decode will dirty.
+
+        Runs after growth, before dispatch: the dirty page is ``length //
+        page_tokens``; while it is still inside the shared prefix it is
+        privatized first, so decode never writes a refcounted cache
+        page.  Only the LAST shared page can be partial, so at most one
+        copy fires per slot over its life.
+        """
+        for i, slot in enumerate(self.slots):
+            if slot is None or not slot.shared_n:
+                continue
+            if slot.length // self.page_tokens < slot.shared_n:
+                self._cow_page(i)
+
+    def _cow_page(self, idx: int) -> None:
+        """Privatize one slot's deepest shared page before it is dirtied."""
+        slot = self.slots[idx]
+        tenant = slot.tenant
+        pos = slot.shared_n - 1     # only the deepest shared page is partial
+        while not self.free_pages:
+            freed = self.prefix_cache.reclaim(1)
+            if freed:
+                self.free_pages.extend(freed)
+                break
+            self._preempt(self._pick_victim(tenant))
+            if self.slots[idx] is None:
+                return              # the CoW slot itself was the victim
+        dst = self.free_pages.pop()
+        epoch = tenant.current_epoch
+        ok = self._copy_pages(
+            [slot.pages[pos]], [dst],
+            src=(tenant.index, self.registry.cache_row(tenant.index),
+                 kvp.PREFIX_ROLE),
+            dst=(tenant.index, self.registry.key_row(tenant.index, epoch),
+                 epoch),
+            lanes=self.pages_per_slot)
+        if not ok:
+            self.free_pages.append(dst)
+            raise IntegrityError(
+                f"copy-on-write of slot {idx} shared page {pos} failed "
+                f"verification (tenant {tenant.tenant_id!r})")
+        slot.pages[pos] = dst
+        slot.page_epochs[pos] = epoch
+        slot.shared_n -= 1
+        self.prefix_cache.release([slot.shared_entries.pop()])
+        self.stats["prefix_cow_pages"] += 1
+
     def _pick_victim(self, tenant=None) -> int:
         """Youngest running slot (LIFO preemption), scoped to
         ``tenant``'s own slots in multi-tenant mode."""
@@ -633,8 +1018,19 @@ class SecureServingEngine:
                       and (tenant is None or s.tenant is tenant)]
         return max(candidates, key=lambda i: self.slots[i].admit_seq)
 
+    def _unpin_shared(self, slot: _Slot) -> None:
+        """Drop a dying slot's pin on its shared prefix pages: they
+        belong to the cache, and only the private tail is freed."""
+        if slot.shared_n:
+            self.prefix_cache.release(slot.shared_entries)
+            del slot.pages[: slot.shared_n]
+            del slot.page_epochs[: slot.shared_n]
+            slot.shared_n = 0
+            slot.shared_entries = []
+
     def _preempt(self, idx: int) -> None:
         slot = self.slots[idx]
+        self._unpin_shared(slot)
         self.free_pages.extend(slot.pages)
         self.slots[idx] = None
         self.page_table.clear(idx)
@@ -648,6 +1044,7 @@ class SecureServingEngine:
 
     def _release(self, idx: int) -> None:
         slot = self.slots[idx]
+        self._unpin_shared(slot)
         self.free_pages.extend(slot.pages)
         self.slots[idx] = None
         self.page_table.clear(idx)
@@ -723,6 +1120,11 @@ class SecureServingEngine:
                                                    tenant.current_epoch)
             for j, epoch in enumerate(slot.page_epochs[:p]):
                 key_epochs[i, j] = epoch
+                if epoch & kvp.PREFIX_ROLE:
+                    # Shared prefix page: the tenant's epoch-independent
+                    # cache row, not a session epoch's.
+                    key_idx[i, j] = self.registry.cache_row(tenant.index)
+                    continue
                 try:
                     key_idx[i, j] = self.registry.key_row(tenant.index,
                                                           epoch)
@@ -750,7 +1152,10 @@ class SecureServingEngine:
             slot = self.slots[i]
             lengths[i] = slot.length
             active[i] = True
-            tokens[i, 0] = slot.req.generated[-1]
+            # A prefix hit teacher-forces the prompt tail its skipped
+            # prefill still owes the KV cache.
+            tokens[i, 0] = (slot.replay[0] if slot.replay
+                            else slot.req.generated[-1])
         dev = self.device
         args = [torch.as_tensor(page_table, device=dev),
                 torch.as_tensor(lengths, device=dev),
@@ -800,6 +1205,11 @@ class SecureServingEngine:
                 if dirty < len(slot.page_epochs):
                     slot.page_epochs[dirty] = slot.tenant.current_epoch
             slot.length += 1
+            if slot.replay:
+                slot.replay.popleft()
+                if slot.replay:
+                    continue        # mid-replay: the sample is discarded
+                # The LAST replay step's sample is the first real output.
             slot.req.generated.append(int(toks[i, 0]))
             if slot.req.first_tick is None:
                 slot.req.first_tick = self.tick

@@ -21,16 +21,25 @@ schedules batched over pages for a mixed ctx.
 
 Unlike the reference, whose pool is an immutable value rewritten by
 every write, :meth:`PageIO.write` updates the pool tensors IN PLACE and
-returns the same pool.  Scatters with repeated indices only ever repeat
-the scratch page, so which write wins there does not matter.
+returns the same pool, then calls each of ``PageIO.write_listeners``
+with it (the engine's Merkle level learns of changes this way).
+Scatters with repeated indices only ever repeat the scratch page, so
+which write wins there does not matter.  For the same reason every
+crossing that reads before it writes (:meth:`PageIO.reseal`,
+:meth:`PageIO.copy`, :meth:`PageIO.migrate`) syncs on the read verdict
+first and writes nothing when it fails.
 
-The prefix cache, migration between pools and the Merkle level are not
-ported yet.
+:class:`PrefixCache` is the host-side index of the secure shared-prefix
+cache: pages sealed under a tenant's cache binding (epoch word
+:data:`PREFIX_ROLE`) and found by the chain hash of the tokens they
+hold.  Migration between pools on different devices is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+import hashlib
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,9 +54,20 @@ from repro_torch.models.attention import CacheSpec
 __all__ = ["LeafPageSpec", "PageSpec", "PagedKVPool", "PageKeyCtx", "PageIO",
            "TwoLevelPageTable", "page_count_bucket", "PAGED_FIELDS",
            "paged_flags", "length_flags", "cache_leaves", "cache_unflatten",
-           "build_page_spec", "init_pool", "deferred_pool_check"]
+           "build_page_spec", "init_pool", "deferred_pool_check",
+           "PREFIX_ROLE", "PrefixCache", "PrefixCacheEntry", "read_pages",
+           "write_pages", "write_prefill", "write_dirty", "read_pages_raw",
+           "reseal_pages", "migrate_pages", "merkle_leaf_macs"]
 
+# fmap-word bit budget: leaf idx (0-7) | tenant (8-15) | epoch word
+# (16-27) | shard (28-31).  The epoch word's top bit (fmap bit 27) is the
+# prefix-cache ROLE: a page sealed into the shared-prefix cache carries
+# epoch word PREFIX_ROLE instead of a session epoch, selecting the
+# tenant's epoch-independent cache keys; session epochs use the other 11
+# bits.  The crypt/MAC plumbing is role-agnostic: the bit rides inside
+# the epoch word through _tenant_words / _block_binding unchanged.
 MAX_SHARDS = 16
+PREFIX_ROLE = 0x800          # bit 11 of the epoch word -> fmap bit 27
 
 # Cache fields whose leaves have a (steps, B, max_len, ...) layout and
 # cross the untrusted boundary; everything else stays on-chip.
@@ -615,12 +635,32 @@ def _bytes_to_tokens(spec: PageSpec, leaf: LeafPageSpec,
 # ---------------------------------------------------------------------------
 
 
+def _page_ids(spec: PageSpec, ids, device) -> torch.Tensor:
+    """Host-built page ids as an int64 tensor on ``device``.
+
+    Ids outside ``[0, scratch_page]`` raise here: the reference's
+    gathers clamp such an id, torch's raise (on the card, as a device
+    fault).  As in :meth:`PageKeyCtx.make`, only host data is checked.
+    """
+    ids = torch.as_tensor(ids).to(torch.int64)
+    if ids.device.type == "cpu" and ids.numel() and (
+            int(ids.min()) < 0 or int(ids.max()) > spec.scratch_page):
+        raise IndexError(f"page ids {int(ids.min())}..{int(ids.max())} "
+                         f"outside the pool (0..{spec.scratch_page})")
+    return ids.to(device)
+
+
 class PageIO:
-    """Pool boundary crossings for one ``(spec, keys)`` pair."""
+    """Pool boundary crossings for one ``(spec, keys)`` pair.
+
+    ``write_listeners`` are called as ``listener(pool)`` after every
+    write into a pool (the pool is updated in place).
+    """
 
     def __init__(self, spec: PageSpec, keys):
         self.spec = spec
         self.keys = keys
+        self.write_listeners: list = []
 
     def read(self, pool: PagedKVPool, page_table: torch.Tensor,
              lengths: torch.Tensor, ctx: PageKeyCtx | None = None,
@@ -708,6 +748,8 @@ class PageIO:
         delta = torch.where(real_mask[:, None], old_macs ^ agg,
                             torch.zeros_like(agg))
         pool.pool_mac.bitwise_xor_(mac.xor_aggregate(delta))
+        for listener in self.write_listeners:
+            listener(pool)
         return pool
 
     def write_prefill(self, pool: PagedKVPool, page_ids: torch.Tensor,
@@ -822,9 +864,378 @@ class PageIO:
         return self.write(pool, page_ids, leaf_pages, vn, real, new_ctx,
                           uniform), ok
 
+    def copy(self, pool: PagedKVPool, src_ids, dst_ids, vn: int,
+             src_ctx: PageKeyCtx | None = None,
+             dst_ctx: PageKeyCtx | None = None):
+        """Reseal N pages to *other* page ids within one pool.
+
+        Decrypt + verify the source pages under ``src_ctx``, re-encrypt
+        + re-MAC the same plaintext into ``dst_ids`` under ``dst_ctx``:
+        the rebinding primitive of the prefix cache (insert: session
+        page -> cache page, epoch word :data:`PREFIX_ROLE`;
+        copy-on-write: cache page -> session page; reseal-on-share: one
+        tenant's cache page -> another's).  Lanes may be padded with the
+        scratch page on both sides.  Returns ``(pool, ok)``; nothing is
+        written when ``ok`` fails (see :meth:`migrate`).
+        """
+        return self.migrate(pool, self.spec, pool, src_ids, dst_ids, vn,
+                            src_ctx, dst_ctx)
+
+    def migrate(self, src_pool: PagedKVPool, src_spec: PageSpec,
+                dst_pool: PagedKVPool, src_ids, dst_ids, vn: int,
+                src_ctx: PageKeyCtx | None = None,
+                dst_ctx: PageKeyCtx | None = None):
+        """Reseal N pages from ``src_pool`` (laid out by ``src_spec``,
+        e.g. another shard's binding) into this IO's ``dst_pool``.
+
+        Both pools must live on one device (migration across devices is
+        not ported).  The pool is written in place, so unlike the
+        reference this syncs on the source verdict first and writes
+        nothing when it fails: a tampered source must not be laundered
+        into freshly MACed pages.  ``src_ids`` / ``dst_ids`` are host
+        arrays (checked against the pools here) or tensors.  Returns
+        ``(dst_pool, ok)``.
+        """
+        dst_spec = self.spec
+        if src_spec.leaves != dst_spec.leaves:
+            raise ValueError("migration needs identically-laid-out pools")
+        device = dst_pool.page_macs.device
+        if src_pool.page_macs.device != device:
+            raise NotImplementedError("migration between devices is not "
+                                      "ported (pools on "
+                                      f"{src_pool.page_macs.device} and "
+                                      f"{device})")
+        src_ids = _page_ids(src_spec, src_ids, device)
+        dst_ids = _page_ids(dst_spec, dst_ids, device)
+        if src_ids.shape != dst_ids.shape:
+            raise ValueError(f"{src_ids.shape[0]} source pages for "
+                             f"{dst_ids.shape[0]} destinations")
+        leaf_pages, ok = PageIO(src_spec, self.keys).read_raw(
+            src_pool, src_ids, src_ctx)
+        if not bool(ok):
+            return dst_pool, ok
+        real = dst_ids < dst_spec.n_pages
+        return self.write(dst_pool, dst_ids, leaf_pages, vn, real,
+                          dst_ctx), ok
+
+
+# ---------------------------------------------------------------------------
+# Free-function wrappers: the reference's pre-PageIO module API.
+# ---------------------------------------------------------------------------
+
+
+def read_pages(pool: PagedKVPool, spec: PageSpec, keys,
+               page_table: torch.Tensor, lengths: torch.Tensor,
+               ctx: PageKeyCtx | None = None, uniform: bool = False):
+    """:meth:`PageIO.read` as a function."""
+    return PageIO(spec, keys).read(pool, page_table, lengths, ctx, uniform)
+
+
+def write_pages(pool: PagedKVPool, spec: PageSpec, keys,
+                page_ids: torch.Tensor, leaf_pages: list, vn: int,
+                real_mask: torch.Tensor, ctx: PageKeyCtx | None = None,
+                uniform: bool = False) -> PagedKVPool:
+    """:meth:`PageIO.write` as a function."""
+    return PageIO(spec, keys).write(pool, page_ids, leaf_pages, vn,
+                                    real_mask, ctx, uniform)
+
+
+def write_prefill(pool: PagedKVPool, spec: PageSpec, keys,
+                  page_ids: torch.Tensor, dense_leaves: list,
+                  n_write_pages: int, vn: int,
+                  ctx: PageKeyCtx | None = None,
+                  uniform: bool = False) -> PagedKVPool:
+    """:meth:`PageIO.write_prefill` as a function."""
+    return PageIO(spec, keys).write_prefill(pool, page_ids, dense_leaves,
+                                            n_write_pages, vn, ctx, uniform)
+
+
+def write_dirty(pool: PagedKVPool, spec: PageSpec, keys,
+                page_table: torch.Tensor, dense_leaves: list,
+                lengths: torch.Tensor, active: torch.Tensor, vn: int,
+                ctx: PageKeyCtx | None = None,
+                uniform: bool = False) -> PagedKVPool:
+    """:meth:`PageIO.write_dirty` as a function."""
+    return PageIO(spec, keys).write_dirty(pool, page_table, dense_leaves,
+                                          lengths, active, vn, ctx, uniform)
+
+
+def read_pages_raw(pool: PagedKVPool, spec: PageSpec, keys,
+                   page_ids: torch.Tensor, ctx: PageKeyCtx | None = None,
+                   uniform: bool = False):
+    """:meth:`PageIO.read_raw` as a function."""
+    return PageIO(spec, keys).read_raw(pool, page_ids, ctx, uniform)
+
+
+def reseal_pages(pool: PagedKVPool, spec: PageSpec, keys,
+                 page_ids: torch.Tensor, vn: int,
+                 old_ctx: PageKeyCtx | None = None,
+                 new_ctx: PageKeyCtx | None = None, uniform: bool = False):
+    """:meth:`PageIO.reseal` as a function."""
+    return PageIO(spec, keys).reseal(pool, page_ids, vn, old_ctx, new_ctx,
+                                     uniform)
+
+
+def migrate_pages(src_pool: PagedKVPool, src_spec: PageSpec,
+                  dst_pool: PagedKVPool, dst_spec: PageSpec, keys,
+                  src_ids, dst_ids, vn: int,
+                  src_ctx: PageKeyCtx | None = None,
+                  dst_ctx: PageKeyCtx | None = None):
+    """:meth:`PageIO.migrate` as a function."""
+    return PageIO(dst_spec, keys).migrate(src_pool, src_spec, dst_pool,
+                                          src_ids, dst_ids, vn, src_ctx,
+                                          dst_ctx)
+
 
 def deferred_pool_check(pool: PagedKVPool, spec: PageSpec) -> torch.Tensor:
     """Model-level deferred MAC: the XOR of every real page MAC equals the
     incrementally kept pool MAC."""
     return (mac.xor_aggregate(pool.page_macs[: spec.n_pages])
             == pool.pool_mac).all()
+
+
+def merkle_leaf_macs(pool: PagedKVPool, spec: PageSpec) -> np.ndarray:
+    """Host copy of the real pages' MAC rows: the Merkle leaf material
+    (the scratch row is in no integrity fold).  A tiny transfer, run
+    at the deferred-check cadence or for a proof, never per decode."""
+    return pool.page_macs[: spec.n_pages].cpu().numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# PrefixCache: content-addressed index over cache-bound shared pages.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PrefixCacheEntry:
+    """One cached prefix chunk: a sealed page and its chain position.
+
+    ``key`` is ``(tenant_index, chain_hash)``, the chain hash covering
+    every token from position 0 through this chunk, so a page is only
+    reachable by walking its whole ancestry.  ``n_tokens`` may be short
+    of a full page for the chain's leaf chunk; only leaves may be
+    partial.
+    """
+
+    key: tuple
+    parent: Optional["PrefixCacheEntry"]
+    page_id: int
+    n_tokens: int
+    refs: int = 0
+    last_use: int = 0
+
+
+class PrefixCache:
+    """Host-side content-addressed secure prefix cache (the reference's
+    ``repro.serve.kv_pages.PrefixCache``, same behaviour).
+
+    Entries index pool pages sealed under the owning tenant's cache
+    binding (epoch word :data:`PREFIX_ROLE`, the tenant's
+    epoch-independent cache keys, ``TenantRegistry.cache_row``).  A
+    page sealed once is verify-read by every session that matches its
+    chain, and keys are per tenant, so a match only ever hands a
+    session pages its own tenant sealed; cross-tenant sharing goes
+    through the engine's explicit reseal-on-share.
+
+    **Keying.**  Token streams are cut into page-sized chunks; chunk
+    ``i``'s chain hash is ``H(chain[i-1] || tokens_i)``.  Lookup walks
+    the chain from chunk 0 and returns the longest run of full matches,
+    then the longest matching *partial* leaf, so a hit is always a
+    page-aligned prefix of the slot's context.
+
+    **Lifecycle.**  Slots ``acquire`` the whole matched chain (every
+    ancestor's refcount rises, so a parent's refcount dominates its
+    children's) and ``release`` it on finish, preemption or
+    copy-on-write.  ``reclaim`` evicts LRU over refcount-zero *leaf*
+    entries, which by that dominance never strands a referenced
+    descendant.
+
+    The cache holds page ids only; the engine seals bytes in and out of
+    those pages through :class:`PageIO`.
+    """
+
+    def __init__(self, page_tokens: int, capacity_pages: int):
+        if capacity_pages < 1:
+            raise ValueError("prefix cache needs capacity >= 1 page")
+        self.page_tokens = page_tokens
+        self.capacity_pages = capacity_pages
+        self._entries: dict[tuple, PrefixCacheEntry] = {}
+        self._children: dict[tuple, set] = {}
+        self._clock = 0
+
+    # -- chain hashing ------------------------------------------------------
+
+    @staticmethod
+    def _chain_hash(parent_hash: bytes, chunk) -> bytes:
+        buf = np.asarray(list(chunk), np.uint32).tobytes()
+        return hashlib.sha256(parent_hash + buf).digest()
+
+    def _chain(self, tokens):
+        """Page-sized chunks of ``tokens`` with their chain hashes:
+        ``[(hash, n_tokens), ...]``; only the last may be partial."""
+        out, h = [], b""
+        ptok = self.page_tokens
+        for start in range(0, len(tokens), ptok):
+            chunk = tokens[start: start + ptok]
+            h = self._chain_hash(h, chunk)
+            out.append((h, len(chunk)))
+        return out
+
+    # -- lookup / refcounts -------------------------------------------------
+
+    def match(self, tenant_index: int, tokens) -> list:
+        """Longest cached chain covering a prefix of ``tokens``.
+
+        Pure (no refcount or LRU side effect).  Walks full page-sized
+        chunks first; after the first miss, probes partial leaves of the
+        next chunk longest-first, so an exact-length partial page cached
+        by a shorter prompt still hits.
+        """
+        matched, h = [], b""
+        ptok = self.page_tokens
+        consumed = 0
+        while consumed < len(tokens):
+            chunk = tokens[consumed: consumed + ptok]
+            full_h = self._chain_hash(h, chunk)
+            entry = self._entries.get((tenant_index, full_h))
+            if entry is not None and entry.n_tokens == len(chunk):
+                matched.append(entry)
+                h = full_h
+                consumed += len(chunk)
+                continue
+            for c in range(len(chunk) - 1, 0, -1):
+                part_h = self._chain_hash(h, chunk[:c])
+                entry = self._entries.get((tenant_index, part_h))
+                if entry is not None and entry.n_tokens == c:
+                    matched.append(entry)
+                    break
+            break
+        return matched
+
+    def match_tokens(self, tenant_index: int, tokens) -> int:
+        """Tokens a :meth:`match` would cover."""
+        return sum(e.n_tokens for e in self.match(tenant_index, tokens))
+
+    def missing(self, tenant_index: int, tokens):
+        """Insertion plan after the longest match: ``(matched, missing)``,
+        ``missing`` the ``[(key, n_tokens), ...]`` of the chunks after
+        the match, in chain order.  As in the reference, their hashes
+        chain from the start of ``tokens[covered:]``, not from the
+        match, so they extend a chain only when nothing matched."""
+        matched = self.match(tenant_index, tokens)
+        covered = sum(e.n_tokens for e in matched)
+        if matched and matched[-1].n_tokens % self.page_tokens:
+            return matched, []          # partial leaf: chain can't extend
+        missing = [((tenant_index, ch), n)
+                   for ch, n in self._chain(tokens[covered:])]
+        return matched, missing
+
+    def acquire(self, entries) -> None:
+        """Pin a matched chain: every entry's refcount rises by one."""
+        self._clock += 1
+        for e in entries:
+            e.refs += 1
+            e.last_use = self._clock
+
+    def release(self, entries) -> None:
+        for e in entries:
+            if e.refs <= 0:
+                raise RuntimeError(f"prefix-cache refcount underflow on "
+                                   f"{e.key[1].hex()[:12]}")
+            e.refs -= 1
+
+    # -- insertion / eviction -----------------------------------------------
+
+    def insert(self, key: tuple, parent: Optional[PrefixCacheEntry],
+               page_id: int, n_tokens: int) -> PrefixCacheEntry:
+        """Index a freshly cache-sealed page under its chain key.
+
+        The caller has already copied the page's bytes into ``page_id``
+        under the cache binding (:meth:`PageIO.copy`).  New entries
+        start unreferenced: the inserting slot keeps decoding on its
+        private pages.
+        """
+        if key in self._entries:
+            raise ValueError("prefix chunk already cached")
+        if len(self._entries) >= self.capacity_pages:
+            raise ValueError("prefix cache over capacity — reclaim first")
+        if parent is not None and parent.n_tokens % self.page_tokens:
+            raise ValueError("cannot extend a partial (leaf) chunk")
+        entry = PrefixCacheEntry(key=key, parent=parent, page_id=page_id,
+                                 n_tokens=n_tokens)
+        self._clock += 1
+        entry.last_use = self._clock
+        self._entries[key] = entry
+        if parent is not None:
+            self._children.setdefault(parent.key, set()).add(key)
+        return entry
+
+    @property
+    def pages_used(self) -> int:
+        return len(self._entries)
+
+    @property
+    def total_refs(self) -> int:
+        """Refcount pins over every entry."""
+        return sum(e.refs for e in self._entries.values())
+
+    def free_capacity(self) -> int:
+        return self.capacity_pages - len(self._entries)
+
+    def _evict(self, entry: PrefixCacheEntry) -> None:
+        del self._entries[entry.key]
+        if entry.parent is not None:
+            kids = self._children.get(entry.parent.key)
+            if kids is not None:
+                kids.discard(entry.key)
+                if not kids:
+                    del self._children[entry.parent.key]
+
+    def reclaim(self, n_pages: int) -> list:
+        """Evict up to ``n_pages`` unreferenced entries, LRU leaf-first;
+        returns the freed page ids for the engine to reuse."""
+        freed = []
+        while len(freed) < n_pages:
+            cands = [e for e in self._entries.values()
+                     if e.refs == 0 and not self._children.get(e.key)]
+            if not cands:
+                break
+            victim = min(cands, key=lambda e: e.last_use)
+            self._evict(victim)
+            freed.append(victim.page_id)
+        return freed
+
+    def evict_pages(self, page_ids) -> int:
+        """Drop every entry holding one of ``page_ids``, and its
+        descendants (unreachable without it), whatever their refcounts:
+        a retired frame must never satisfy a match.  Pinned slots keep
+        their entry objects (:meth:`release` works on objects); the
+        chain just stops being found.  Returns the entries dropped."""
+        bad = {int(p) for p in page_ids}
+        dropped, progress = 0, True
+        while progress:
+            progress = False
+            for e in list(self._entries.values()):
+                orphaned = (e.parent is not None
+                            and e.parent.key not in self._entries)
+                if e.page_id in bad or orphaned:
+                    self._evict(e)
+                    dropped += 1
+                    progress = True
+        return dropped
+
+    def flush(self, tenant_index: Optional[int] = None) -> list:
+        """Evict every unreferenced entry (optionally one tenant's): the
+        revocation path of the epoch-independent cache binding.  Returns
+        the freed page ids; referenced chains survive."""
+        freed, progress = [], True
+        while progress:
+            progress = False
+            for e in list(self._entries.values()):
+                if tenant_index is not None and e.key[0] != tenant_index:
+                    continue
+                if e.refs == 0 and not self._children.get(e.key):
+                    self._evict(e)
+                    freed.append(e.page_id)
+                    progress = True
+        return freed

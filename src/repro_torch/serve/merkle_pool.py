@@ -1,9 +1,9 @@
 """Merkle pool integrity: auditable roots and per-tenant membership proofs.
 
 The port's copy of the reference module (it imports only numpy and
-hashlib); every digest and proof is byte-identical.  The port uses it
-for the audit proofs a checkpoint manifest carries; wiring it into the
-serving engine is not ported yet.
+hashlib); every digest and proof is byte-identical.  The serving engine
+keeps one tree over its pool (``SecureServingEngine.audit_proof``), and
+checkpoint manifests carry proofs built with it.
 
 The deferred pool MAC and the cluster root (``sharded_pool``) are
 *verifier-side* levels: a tenant has to trust that the host actually

@@ -4,7 +4,9 @@ Rows of the mixed-key kernels are drawn over a (K, ...) key bank at
 edge sizes; a bank too large for a thread block's shared memory and bad
 operands must raise.  The weights boundary (``protect`` / ``unprotect``
 and checkpoints) on the card gives the CPU's bytes, and its narrow
-B-AES and NH MACs go through the kernels.
+B-AES and NH MACs go through the kernels.  A prefix-cache run (hits,
+copy-on-write, reseal-on-share) gives the CPU's tokens and counters and
+goes through the mixed-key kernels.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -480,3 +482,49 @@ def test_checkpoint_saved_on_the_card_loads_on_cpu(card, tmp_path):
     assert out["w"].device.type == "cuda" and torch.equal(out["w"], tree["w"])
     with pytest.raises(CheckpointError):
         load_checkpoint(path, tree, SecureKeys.derive(18, device=card))
+
+
+def _prefix_run(device, params):
+    """Hit / miss / copy-on-write traffic over 2 tenants, then a
+    reseal-on-share and a hit through it (the smoke config)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch("minitron-4b")
+    reg = TenantRegistry(KeyHierarchy(0, device=device), max_tenants=2)
+    reg.register("a")
+    reg.register("b")
+    sa, sb = reg.open_session("a"), reg.open_session("b")
+    eng = SecureServingEngine(arch, arch.make_smoke_config(), params,
+                              scheme="seda", use_kernel=True, registry=reg,
+                              prefix_cache=True, max_slots=2, page_tokens=4,
+                              pages_per_slot=4, n_pages=16, device=device)
+    rng = np.random.default_rng(3)
+    p7 = list(map(int, rng.integers(1, 256, 7)))
+    prompts = [p7, p7, p7 + [9], list(map(int, rng.integers(1, 256, 9)))]
+    reset_launches()
+    rids = [eng.submit(prompt=p, max_new_tokens=4, session=sa)
+            for p in prompts]
+    eng.run()
+    shared = eng.share_prefix(p7, from_session=sa, to_session=sb)
+    rids.append(eng.submit(prompt=p7 + [9], max_new_tokens=4, session=sb))
+    eng.run()
+    return ([eng.requests[r].generated for r in rids], dict(eng.stats),
+            shared, dict(LAUNCHES))
+
+
+def test_prefix_cache_on_the_card_equals_cpu(card):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    cfg = get_arch("minitron-4b").make_smoke_config()
+    params = init_params(lm.lm_specs(cfg), 0, device="cpu")
+    cpu = _prefix_run("cpu", params)
+    gpu = _prefix_run(card, params)
+    assert gpu[:3] == cpu[:3]
+    stats = gpu[1]
+    assert stats["prefix_hit_pages"] > 0 and stats["prefix_cow_pages"] > 0
+    assert stats["prefix_inserted_pages"] > 0 and gpu[2] > 0
+    assert all(v == 0 for v in cpu[3].values())
+    for name in ("aes_ctr_keystream_multi", "fused_crypt_mac_mixed",
+                 "fused_crypt_mac_write_mixed"):
+        assert gpu[3][name] > 0, name

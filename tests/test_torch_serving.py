@@ -252,6 +252,8 @@ def test_engine_eviction_keeps_tokens(smoke):
 def test_engine_submit_surface_and_device(smoke):
     eng = _eng(smoke, scheme="off")
     with pytest.raises(TypeError):
+        eng.submit(SubmitRequest(prompt=[1, 2, 3]), 4)
+    with pytest.warns(DeprecationWarning):     # the legacy positional form
         eng.submit([1, 2, 3], 4)
     with pytest.raises(ValueError):
         eng.submit(prompt=[1] * 20, max_new_tokens=1)
