@@ -55,26 +55,47 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              cache page in tenant 1's slot fails; one 7-page copy is
              timed; the smoke config (float32) with the cache gives the
              tokens of the engine without it.
-10. weights — the serve phase's full-width params through
+10. faults — the serve phase's weights and requests through the
+             fault-tolerant engine (seda, kernels, ``trace`` and ``audit``
+             on, 16 spare frames): one plan with a bitflip, a VN bump, a
+             page swap and a transient verdict fault single-tenant, one
+             with a bitflip and a corrupted page MAC over the tenants
+             phase's 4 tenants.  No ``IntegrityError`` escapes; the
+             quarantine counter equals the pages condemned; no
+             quarantined frame is free or in a slot after any tick; the
+             Merkle tree equals a rebuild; the audit chain verifies;
+             ``export_trace`` is Chrome JSON; un-faulted sessions keep the
+             serve phase's tokens.  Each containment's host ms and its
+             probes' launches (B1 + B2, B4 + B5) are printed.  The same
+             single-tenant plan in float32 at full width gives every
+             session the fault-free tokens; tracing + audit against none
+             in turns.
+11. weights — the serve phase's full-width params through
              ``SecureExecutor("seda")``: protect, then unprotect with the
              layer check, bit-equal and verified (median of 3 each, and
              one of each under a CUPTI trace); a flipped ciphertext byte
              and a stale VN (replay) fail the check; the protect runs
              the AES-CTR, otp_xor and NH kernels.  Then ``seda512`` once
              (plain wide B-AES, the NH kernel at L = 136).
-11. checkpoint — minitron-4b at full width and 2 layers saved as a
+12. checkpoint — minitron-4b at full width and 2 layers saved as a
              secure checkpoint, found by ``latest_step``, loaded and
              verified bit-equal; the engine serves the same tokens from
              the restored and the original weights; a flipped byte of a
              leaf file raises ``CheckpointError``.
-12. launch — the port's launcher (``repro_torch.launch.serve.main``) at
+13. launch — the port's launcher (``repro_torch.launch.serve.main``) at
              full width with 4 tenants and a rotation every tick, after
              the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
              the deferred pool MAC OK; ``--audit-proof-out`` writes one
-             proof per tenant, each verified against its root.
+             proof per tenant, each verified against its root;
+             ``--fault-tolerance`` with the trace, metrics and audit-log
+             files, each parsed (the chain verifies, the snapshot's
+             counters are the run's).  Then ``--engine simple`` gives the
+             tokens of ``--engine paged --scheme off`` on the same
+             prompts.
 
-Each path whose launches are reported (serve, tenants, prefix, weights) is
-driven with the counts set to 0 just before it and read just after.  Then a
+Each path whose launches are reported (serve, tenants, prefix, each
+containment of the faults phase, weights) is driven with the counts set
+to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -607,17 +628,17 @@ def _full_params(cfg):
 
 
 def _engine(arch, cfg, params, prompts, scheme, use_kernel,
-            tenants: bool = False):
+            tenants: bool = False, **kw):
     """The serve phase's engine with ``prompts`` submitted; with
     ``tenants``, over a 4-tenant registry (sessions round-robin) that
-    rotates one tenant every tick."""
+    rotates one tenant every tick.  ``kw`` go to the engine."""
     from repro_torch.serve.engine import SecureServingEngine
     registry = _tenant_registry("cuda") if tenants else None
     eng = SecureServingEngine(
         arch, cfg, params, scheme=scheme, use_kernel=use_kernel,
         max_slots=SERVE["n_requests"], page_tokens=SERVE["page_tokens"],
         pages_per_slot=PAGES_PER_SLOT, registry=registry,
-        rotate_every=1 if tenants else 0)
+        rotate_every=1 if tenants else 0, **kw)
     sessions = ([registry.open_session(f"tenant-{t}")
                  for t in range(N_TENANTS)] if tenants else [None])
     rids = [eng.submit(prompt=p, max_new_tokens=SERVE["new_tokens"],
@@ -627,12 +648,12 @@ def _engine(arch, cfg, params, prompts, scheme, use_kernel,
 
 
 def _serve_once(arch, cfg, params, prompts, scheme, use_kernel,
-                tenants: bool = False):
+                tenants: bool = False, **kw):
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
     eng, rids = _engine(arch, cfg, params, prompts, scheme, use_kernel,
-                        tenants)
+                        tenants, **kw)
     torch.cuda.synchronize()
     reset_launches()                       # main path starts here
     t0 = time.perf_counter()
@@ -943,9 +964,10 @@ def _tree_equals_rebuild(eng) -> None:
 
     from repro_torch.serve import kv_pages as kvp
     from repro_torch.serve import merkle_pool as mkp
+    quarantined = np.zeros(eng.n_pages, bool)
+    quarantined[sorted(eng.quarantined)] = True
     rebuilt = mkp.build_tree(kvp.merkle_leaf_macs(eng.pool, eng.spec),
-                             eng._page_owners(),
-                             np.zeros(eng.n_pages, bool), shard=0)
+                             eng._page_owners(), quarantined, shard=0)
     if eng.merkle.snapshot() != rebuilt:
         raise AssertionError("the incremental Merkle tree differs from a "
                              "rebuild")
@@ -1244,6 +1266,212 @@ def _prefix_smoke_f32() -> dict:
             "tokens_equal_no_cache": True}
 
 
+# The faults phase: the serve phase's requests through the fault-tolerant
+# engine, with spare frames for the quarantined ones.
+FAULTS_N_PAGES = SERVE["n_requests"] * PAGES_PER_SLOT + 16
+SINGLE_FAULTS = (dict(tick=3, kind="bitflip", slot=0),
+                 dict(tick=5, kind="vn_bump", slot=2),
+                 dict(tick=7, kind="page_swap", slot=4),
+                 dict(tick=9, kind="transient"))
+TENANT_FAULTS = (dict(tick=3, kind="bitflip", slot=1),
+                 dict(tick=5, kind="mac_corrupt", slot=2))
+
+
+def _contained_once(arch, cfg, params, prompts, faults, tenants: bool,
+                    **kw) -> tuple:
+    """The serve phase's requests through the fault-tolerant engine with
+    ``faults`` attached (seda, kernels).  Each containment is timed on
+    the host clock, the card synced before and after, with the kernel
+    counts set to 0 just before it and read just after; the first one
+    also runs under a CUPTI trace (device busy time, every launch), so
+    its host time is not comparable with the others'.  Every tick checks
+    that no quarantined frame is free or in a slot."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.faults import Fault, FaultPlan
+    eng, rids = _engine(arch, cfg, params, prompts, "seda", True, tenants,
+                        n_pages=FAULTS_N_PAGES, fault_tolerance=True, **kw)
+    plan = FaultPlan([Fault(**f) for f in faults]).attach(eng)
+    containments: list = []
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            traced = not containments
+            prof = (profile(activities=[ProfilerActivity.CUDA]) if traced
+                    else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            reset_launches()
+            with prof:
+                t0 = time.perf_counter()
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    host_ms = (time.perf_counter() - t0) * 1e3
+                    containments.append({
+                        "tick": eng.tick, "where": name, "host_ms": host_ms,
+                        "traced": traced,
+                        "launches": {k: v for k, v in LAUNCHES.items()
+                                     if v}})
+            if traced:
+                trace = _device_breakdown(prof, host_ms, 1, "containment")
+                containments[-1]["device"] = {
+                    k: trace[k] for k in (
+                        "device_busy_ms", "crypto_kernel_ms",
+                        "device_idle_share",
+                        "kernel_launches_per_containment")}
+            return out
+        return wrapper
+
+    eng._contain_error = timed("contain_error", eng._contain_error)
+    eng._decode_failure = timed("decode_failure", eng._decode_failure)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng._n_waiting() or any(s is not None for s in eng.slots):
+        eng.step()                         # an IntegrityError escapes here
+        resident = {int(p) for s in eng.slots if s is not None
+                    for p in s.pages}
+        leak = eng.quarantined & (resident | set(eng.free_pages))
+        if leak:
+            raise AssertionError(f"quarantined frames {sorted(leak)} back "
+                                 f"in use at tick {eng.tick}")
+    eng.run()                              # the end-of-run checks
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, plan, [eng.requests[r].generated for r in rids], {
+        "wall_s": wall, "ticks": eng.tick, "containments": containments}
+
+
+def _containment_gates(eng, plan, faults, tokens, want) -> dict:
+    """The gates of one contained run; the recovered sessions' agreement
+    with the fault-free tokens is returned, not gated (bf16)."""
+    import json
+    import tempfile
+
+    if len(plan.fired) != len(faults):
+        raise AssertionError(f"{len(plan.fired)} of {len(faults)} faults "
+                             "fired")
+    condemned = {p for e in eng.audit.events("quarantine")
+                 for p in e["pages"]}
+    if eng.stats["integrity_quarantined_pages"] != len(condemned) or \
+            condemned != eng.quarantined or not condemned:
+        raise AssertionError(f"quarantined {sorted(eng.quarantined)}, "
+                             f"audited {sorted(condemned)}, counter "
+                             f"{eng.stats['integrity_quarantined_pages']}")
+    if eng.stats["sessions_lost"] or eng.stats["sessions_recovered"] < 1:
+        raise AssertionError(f"sessions lost {eng.stats['sessions_lost']}, "
+                             f"recovered {eng.stats['sessions_recovered']}")
+    _tree_equals_rebuild(eng)
+    if not (eng.audit.verify_chain() and eng.deferred_check()):
+        raise AssertionError("the audit chain or the pool MAC failed")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.NamedTemporaryFile("w", suffix=".json", dir=ROOT / "build",
+                                     delete=False) as f:
+        path = f.name
+    try:
+        eng.export_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    finally:
+        Path(path).unlink()
+    if not events or any(e.get("ph") != "X" or e["dur"] < 0
+                         for e in events):
+        raise AssertionError("export_trace is not Chrome trace JSON")
+    reqs = list(eng.requests.values())
+    faulted = [i for i, r in enumerate(reqs) if r.n_evictions]
+    if any(tokens[i] != want[i] for i in range(len(reqs))
+           if i not in faulted):
+        raise AssertionError("an un-faulted session's tokens changed")
+    if any(len(t) != SERVE["new_tokens"] for t in tokens):
+        raise AssertionError("a session ended short")
+    return {"fired": [f.kind for f in plan.fired],
+            "quarantined": sorted(eng.quarantined),
+            "faulted_sessions": faulted,
+            "faulted_agree_bf16": [_agreement([tokens[i]], [want[i]])[0]
+                                   for i in faulted],
+            "counters": {k: eng.stats[k] for k in (
+                "integrity_verdicts", "integrity_failures",
+                "integrity_quarantined_pages", "sessions_recovered",
+                "sessions_lost", "audit_events", "preemptions")},
+            "audit_events": sorted({e["event"] for e in
+                                    eng.audit.records()}),
+            "trace_events": len(events)}
+
+
+def _recovery_f32(arch, cfg, params, prompts) -> dict:
+    """The recovery token gate in float32 at full width: the single-
+    tenant fault plan's run gives every session the fault-free tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    _, want, _ = _serve_once(arch, cfg32, params32, prompts, "seda", True)
+    eng, _, got, run = _contained_once(arch, cfg32, params32, prompts,
+                                       SINGLE_FAULTS, False)
+    stats = dict(eng.stats)
+    del eng, params32
+    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError(f"float32 recovery: agreement "
+                             f"{_agreement(got, want)} of 16 tokens")
+    if stats["sessions_recovered"] < 1 or stats["sessions_lost"]:
+        raise AssertionError(f"float32 recovery: {stats}")
+    return {"requests": len(prompts), "tokens_equal_fault_free": True,
+            "sessions_recovered": stats["sessions_recovered"],
+            "sessions_lost": stats["sessions_lost"],
+            "containment_host_ms": [c["host_ms"]
+                                    for c in run["containments"]]}
+
+
+def _obs_cost(arch, cfg, params, prompts) -> dict:
+    """The serve phase's seda + kernels run with ``trace=True,
+    audit=True`` and without, in turns (ABAB): host ms per tick."""
+    import torch
+    out: dict = {"obs": [], "bare": []}
+    for key in ("obs", "bare", "obs", "bare"):
+        kw = dict(trace=True, audit=True) if key == "obs" else {}
+        eng, _, run = _serve_once(arch, cfg, params, prompts, "seda", True,
+                                  **kw)
+        out[key].append(run["wall_s"] * 1e3 / run["ticks"])
+        del eng
+        torch.cuda.empty_cache()
+    return {"tick_ms": out, "order": "obs, bare, obs, bare"}
+
+
+def phase_faults(arch, cfg, results: dict) -> dict:
+    """Fault containment at full width: single tenant, then 4 tenants
+    rotating every tick; the recovery token gate in float32; the cost of
+    tracing + audit in turns."""
+    import torch
+    params, prompts = results["params"], results["prompts"]
+    want = results["serve_tokens"]
+    out = {"n_pages": FAULTS_N_PAGES}
+    for key, faults, tenants in (("single", SINGLE_FAULTS, False),
+                                 ("tenants", TENANT_FAULTS, True)):
+        eng, plan, tokens, run = _contained_once(
+            arch, cfg, params, prompts, faults, tenants, trace=True,
+            audit=True)
+        out[key] = {**_containment_gates(eng, plan, faults, tokens, want),
+                    **run}
+        del eng
+        torch.cuda.empty_cache()
+    for key, names in (("single", SINGLE_KEY[:2]), ("tenants", MIXED_KEY[:2])):
+        fired = {n: sum(c["launches"].get(n, 0)
+                        for c in out[key]["containments"]) for n in names}
+        if not all(fired.values()):
+            raise AssertionError(f"{key}: containment launched {fired}")
+        out[key]["containment_launches"] = fired
+    out["recovery_f32"] = _recovery_f32(arch, cfg, params, prompts)
+    out["obs_cost"] = _obs_cost(arch, cfg, params, prompts)
+    return out
+
+
 def _timed(fn) -> tuple:
     """``(fn(), wall ms)``, the wall clock around work that ends in a
     device sync."""
@@ -1452,19 +1680,53 @@ def phase_launch(results: dict) -> dict:
     results.pop("params", None)            # free the earlier model
     gc.collect()
     torch.cuda.empty_cache()
+    from repro_torch.obs.audit import AuditLog
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="launch_smoke_", dir=ROOT / "build")
-    argv = ["--arch", "minitron-4b", "--engine", "paged", "--scheme", "seda",
-            "--batch", str(SERVE["n_requests"]),
-            "--prompt-len", str(SERVE["prompt_len"]),
-            "--gen-len", str(SERVE["new_tokens"]),
-            "--tenants", str(N_TENANTS), "--rotate-every", "1",
-            "--audit-proof-out", str(Path(tmp, "proofs.json"))]
+    files = {name: str(Path(tmp, name)) for name in (
+        "proofs.json", "trace.json", "metrics.json", "metrics.prom",
+        "audit.jsonl")}
+    shape_args = ["--arch", "minitron-4b",
+                  "--batch", str(SERVE["n_requests"]),
+                  "--prompt-len", str(SERVE["prompt_len"]),
+                  "--gen-len", str(SERVE["new_tokens"])]
+    argv = shape_args + [
+        "--engine", "paged", "--scheme", "seda",
+        "--tenants", str(N_TENANTS), "--rotate-every", "1",
+        "--audit-proof-out", files["proofs.json"], "--fault-tolerance",
+        "--trace-out", files["trace.json"],
+        "--metrics-json", files["metrics.json"],
+        "--metrics-prom", files["metrics.prom"],
+        "--audit-out", files["audit.jsonl"]]
     try:
         out = launch.main(argv)
-        bundle = json.loads(Path(tmp, "proofs.json").read_text())
+        bundle = json.loads(Path(files["proofs.json"]).read_text())
+        trace = json.loads(Path(files["trace.json"]).read_text())
+        snap = json.loads(Path(files["metrics.json"]).read_text())
+        prom = Path(files["metrics.prom"]).read_text()
+        log = AuditLog.load(files["audit.jsonl"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    if snap["counters"] != out["stats"]:
+        raise AssertionError("the metrics snapshot's counters differ from "
+                             "the run's")
+    if not (log.verify_chain()
+            and len(log) == out["stats"]["audit_events"] > 0):
+        raise AssertionError(f"audit log: {len(log)} records, chain "
+                             f"{log.verify_chain()}")
+    phases = {e["name"] for e in trace["traceEvents"]}
+    if not {"tick", "decode_dispatch", "decode_collect"} <= phases:
+        raise AssertionError(f"trace spans {sorted(phases)}")
+    if "# TYPE repro_decode_steps counter" not in prom:
+        raise AssertionError("no Prometheus text")
+    # The dense loop and the paged off engine on the same prompts.
+    simple = launch.main(shape_args + ["--engine", "simple"])
+    paged_off = launch.main(shape_args + ["--engine", "paged",
+                                          "--scheme", "off"])
+    if simple["tokens"].tolist() != paged_off["tokens"].tolist():
+        raise AssertionError(
+            f"--engine simple tokens differ from paged off: agreement "
+            f"{_agreement(simple['tokens'].tolist(), paged_off['tokens'].tolist())}")
     shape = tuple(out["tokens"].shape)
     if shape != (SERVE["n_requests"], SERVE["new_tokens"]):
         raise AssertionError(f"launcher served tokens of shape {shape}")
@@ -1486,6 +1748,14 @@ def phase_launch(results: dict) -> dict:
     return {"argv": argv, "tokens_shape": shape,
             "tok_per_s": out["tok_per_s"], "stats": out["stats"],
             "latency": out["latency"],
+            "obs_files": {"trace_events": len(trace["traceEvents"]),
+                          "audit_records": len(log),
+                          "audit_events": sorted({r["event"]
+                                                  for r in log.records()}),
+                          "prometheus_lines": len(prom.splitlines())},
+            "simple": {"tok_per_s": simple["tok_per_s"],
+                       "tokens_equal_paged_off": True,
+                       "first_request_tokens": simple["tokens"][0].tolist()},
             "audit_proofs": {"verified": len(bundle["proofs"]),
                              "tick": bundle["tick"],
                              "pages": [len(d["pages"])
@@ -1542,6 +1812,7 @@ def main() -> int:
         ("tenant_tamper",
          lambda: phase_tenant_tamper(arch, cfg, results["params"])),
         ("prefix", lambda: phase_prefix(arch, cfg, results)),
+        ("faults", lambda: phase_faults(arch, cfg, results)),
         ("weights", lambda: phase_weights(results)),
         ("checkpoint", lambda: phase_checkpoint(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),

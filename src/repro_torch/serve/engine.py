@@ -52,13 +52,34 @@ incremental SHA-256 tree over the page MACs
 deferred-check cadence, and :meth:`audit_proof` gives a session an
 O(log n) membership proof for its resident pages.
 
-An integrity failure raises :class:`IntegrityError`.  Fault containment,
-observability and sharding are not ported yet.
+**Observability.**  ``stats`` is a view over a
+:class:`repro_torch.obs.metrics.MetricsRegistry` (counters, lazy gauges,
+histograms; :meth:`snapshot`, :meth:`prometheus`).  ``trace=True`` (or a
+:class:`~repro_torch.obs.trace.SpanTracer`) wraps the tick phases in
+host-clock spans (:meth:`export_trace`); ``audit=True`` (or a shared
+:class:`~repro_torch.obs.audit.AuditLog`) keeps a hash-chained log of
+security events.  Every MAC-gate verdict the engine syncs goes through
+``PageIO.report_verdict``, once per gate.
+
+**Fault containment.**  An integrity failure raises
+:class:`IntegrityError`, with the failing gate (``op``) and pages in
+``err.ctx``.  With ``fault_tolerance`` (``True`` or a
+:class:`repro_torch.serve.faults.RecoveryPolicy`) :meth:`step` contains
+it instead: the failing pages are localized by re-reading every resident
+page (``PageIO.read_raw``, retried), their frames are quarantined for
+good (off the free list, out of the prefix cache and the Merkle tree,
+their MAC rows scrubbed and the pool MAC rebuilt, all in place), and
+only the affected sessions are preempted for secure recompute: their
+re-admission prefills prompt + tokens so far, so the recovered stream
+is the fault-free one.  A retry budget with exponential backoff bounds
+the recoveries of one session (``sessions_lost``).  Sharding is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from collections import deque
 from typing import Optional
@@ -67,27 +88,26 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import mac as mac_mod
 from repro_torch.core import multilevel
 from repro_torch.core import vn as vn_mod
 from repro_torch.core.secure_exec import SCHEMES
 from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import tree_map
+from repro_torch.obs import audit as audit_mod
+from repro_torch.obs import metrics as metrics_mod
+from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve import merkle_pool as mkp
+from repro_torch.serve.faults import RecoveryPolicy
 from repro_torch.serve.serve_step import greedy_sample
 
 __all__ = ["IntegrityError", "Request", "RunResult", "SecureServingEngine",
            "SubmitAPI", "SubmitRequest", "latency_percentiles"]
 
-STAT_NAMES = ("admitted", "decode_steps", "prefill_compiles",
-              "decode_bucket_compiles", "uniform_fast_ticks",
-              "fused_mixed_ticks", "fused_write_ticks", "decode_page_reads",
-              "deferred_checks", "preemptions", "rotations", "reseals",
-              "prefix_hit_pages", "prefill_pages_skipped",
-              "prefix_cow_pages", "prefix_inserted_pages",
-              "prefix_shared_pages", "merkle_root_updates",
-              "merkle_leaf_updates", "audit_proofs")
+# The engine's counters (``stats`` keys), as the reference declares them.
+STAT_NAMES = tuple(metrics_mod.ENGINE_COUNTERS)
 
 
 class IntegrityError(RuntimeError):
@@ -100,12 +120,21 @@ class Request:
     prompt: list
     max_new_tokens: int
     generated: list = dataclasses.field(default_factory=list)
-    state: str = "waiting"          # waiting | running | finished
+    state: str = "waiting"          # waiting | running | finished | failed
     n_evictions: int = 0
+    # Fault containment: ``recovering`` marks a session preempted by an
+    # integrity failure (cleared, and counted, on re-admission);
+    # ``hold_until`` delays its re-admission (backoff);
+    # ``integrity_retries`` counts its recoveries against the budget.
+    recovering: bool = False
+    hold_until: int = 0
+    integrity_retries: int = 0
+    tenant_idx: Optional[int] = None
     submit_tick: int = 0
     first_tick: Optional[int] = None
     done_tick: Optional[int] = None
     share_prefix: bool = True       # may use / populate the prefix cache
+    submit_time: float = 0.0        # perf_counter at submit (ttft_seconds)
 
     @property
     def done(self) -> bool:
@@ -252,6 +281,11 @@ class SecureServingEngine(SubmitAPI):
     ``prefix_cache=True`` (registry required) adds the content-addressed
     :class:`repro_torch.serve.kv_pages.PrefixCache` of at most
     ``prefix_cache_pages`` pages (default a quarter of the pool).
+
+    ``eos_id`` ends a request at that token; ``verify_every_step=False``
+    folds the decode verdicts on the device and checks them once, at
+    the end of :meth:`run`.  ``fault_tolerance``, ``trace`` and
+    ``audit``: see the module docstring.
     """
 
     def __init__(self, arch, cfg, params, *, scheme: str = "seda",
@@ -259,10 +293,13 @@ class SecureServingEngine(SubmitAPI):
                  pages_per_slot: int = 8, n_pages: Optional[int] = None,
                  keys: Optional[SecureKeys] = None,
                  use_kernel: bool = False, defer_interval: int = 16,
+                 eos_id: Optional[int] = None,
+                 verify_every_step: bool = True,
                  registry=None, rotate_every: int = 0,
                  prefix_cache: bool = False,
                  prefix_cache_pages: Optional[int] = None,
-                 merkle: bool = True, device=None):
+                 fault_tolerance=None, merkle: bool = True,
+                 trace=None, audit=None, device=None):
         if arch.kind != "lm":
             raise ValueError("the paged serving engine supports decoder-only "
                              "LMs")
@@ -289,6 +326,15 @@ class SecureServingEngine(SubmitAPI):
                 else SecureKeys.derive(0, device=self.device))
         self.keys = keys.to(self.device)
         self.defer_interval = defer_interval
+        self.eos_id = eos_id
+        self.verify_every_step = verify_every_step
+        # fault_tolerance=None keeps the strict discipline (an
+        # IntegrityError escapes step()/run()); True or a RecoveryPolicy
+        # turns on quarantine + secure-recompute recovery.
+        self.ft = None
+        if fault_tolerance:
+            self.ft = (RecoveryPolicy() if fault_tolerance is True
+                       else fault_tolerance)
         if isinstance(params, torch.nn.Module):
             params = params.tree()
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -308,6 +354,7 @@ class SecureServingEngine(SubmitAPI):
             self._cache_tree, scheme=scheme, page_tokens=page_tokens,
             n_pages=self.n_pages, max_slots=max_slots, max_len=self.max_len,
             use_kernel=use_kernel)
+        self.shard_id = self.spec.shard
         self.page_io = kvp.PageIO(self.spec, self.keys)
         self.prefix_cache = None
         if prefix_cache:
@@ -324,30 +371,34 @@ class SecureServingEngine(SubmitAPI):
         # Crossings write the pool in place: every write is a pool update.
         self.page_io.write_listeners.append(
             lambda pool: self._notify_pool(pool, pool))
+        self._ok_accum = torch.ones((), dtype=torch.bool, device=self.device)
         self.waiting: deque = deque()           # single-tenant FIFO
         self._tenant_waiting: dict = {}         # tenant idx -> deque
         self._vtime: dict = {}                  # tenant idx -> virtual time
         self._rotate_rr = 0
         self.slots: list = [None] * max_slots
         self.free_pages: list = list(range(self.n_pages))
+        # Frames retired for good after a localized integrity failure:
+        # never on the free list, never reallocated.
+        self.quarantined: set = set()
         self.requests: dict = {}
         self._next_rid = 0
         self._admit_seq = 0
         self._epoch = 0
         self.tick = 0
         self._prefill_shapes: set = set()
-        self.stats: dict = {name: 0 for name in STAT_NAMES}
+        self._init_obs(trace, audit)
         self.page_table = kvp.TwoLevelPageTable(max_slots, pages_per_slot)
         self._decode_fns: dict = {}
         # Auditable Merkle level over the page MACs: the listener is
-        # O(1); hashing waits for _tick_end's sync.  No frame is ever
-        # quarantined until fault containment is ported.
+        # O(1); hashing waits for _tick_end's sync.
         self.merkle = None
         if merkle:
             self.merkle = mkp.MerklePagePool(
                 self.n_pages, shard=self.spec.shard,
                 leaf_fn=lambda pool: kvp.merkle_leaf_macs(pool, self.spec),
-                owners_fn=self._page_owners)
+                owners_fn=self._page_owners,
+                quarantined_fn=lambda: self.quarantined)
             self.attach_pool_listener(self.merkle.on_pool_update)
             self.merkle.on_pool_update(None, self.pool)
         if registry is not None:
@@ -377,8 +428,153 @@ class SecureServingEngine(SubmitAPI):
     def attach_pool_listener(self, listener) -> None:
         """``listener(old_pool, new_pool)`` runs on every pool update: a
         new pool assigned, or a crossing's in-place write (then ``old``
-        is ``new``)."""
+        is ``new``), or a repair after a fault (then ``old`` is None)."""
         self._pool_listeners.append(listener)
+
+    # -- observability (metrics / tracing / audit) ---------------------------
+
+    def _init_obs(self, trace, audit) -> None:
+        """Wire the observability layer (:mod:`repro_torch.obs`).
+
+        The registry is always on (its counters are ``stats``); gauges
+        are sampled at :meth:`snapshot` time.  Spans and the phase
+        histograms exist only with ``trace``: the tick phases are then
+        wrapped per instance, so a default engine makes no timing call.
+        ``audit`` (``True`` or a shared :class:`AuditLog`) turns on the
+        hash-chained security log.  The reference's three device-cost
+        profiler gauges are not ported.
+        """
+        self.metrics = metrics_mod.MetricsRegistry()
+        for name, help_ in metrics_mod.ENGINE_COUNTERS.items():
+            self.metrics.counter(name, help_)
+        self._stats = metrics_mod.StatsView(self.metrics)
+        g = metrics_mod.ENGINE_GAUGES
+        self.metrics.gauge("pool_free_pages", g["pool_free_pages"],
+                           fn=lambda: len(self.free_pages))
+        self.metrics.gauge("pool_pages_total", g["pool_pages_total"],
+                           fn=lambda: self.n_pages)
+        self.metrics.gauge("slots_active", g["slots_active"],
+                           fn=lambda: sum(1 for s in self.slots
+                                          if s is not None))
+        self.metrics.gauge("waiting_requests", g["waiting_requests"],
+                           fn=self._n_waiting)
+        if self.registry is not None:
+            self.metrics.gauge(
+                "tenant_resident_pages", g["tenant_resident_pages"],
+                label="tenant",
+                fn=lambda: {
+                    self.registry.by_index(i).tenant_id:
+                        self.tenant_resident_pages(i)
+                    for i in range(self.registry.n_tenants)})
+        if self.prefix_cache is not None:
+            self.metrics.gauge("prefix_cache_pages",
+                               g["prefix_cache_pages"],
+                               fn=lambda: self.prefix_cache.pages_used)
+            self.metrics.gauge("prefix_cache_refs", g["prefix_cache_refs"],
+                               fn=lambda: self.prefix_cache.total_refs)
+        h = metrics_mod.ENGINE_HISTOGRAMS
+        self._ttft_ticks = self.metrics.histogram("ttft_ticks",
+                                                  h["ttft_ticks"])
+        self._ttft_seconds = self.metrics.histogram("ttft_seconds",
+                                                    h["ttft_seconds"])
+        self._bucket_hist = self.metrics.histogram("decode_bucket",
+                                                   h["decode_bucket"])
+        # isinstance first: an EMPTY shared log is falsy (len 0) but is
+        # still the caller's to share.
+        if isinstance(audit, audit_mod.AuditLog):
+            self.audit = audit
+        elif audit:
+            self.audit = audit_mod.AuditLog()
+        else:
+            self.audit = None
+        self.tracer = None
+        if trace:
+            self.tracer = (trace if isinstance(trace, trace_mod.SpanTracer)
+                           else trace_mod.SpanTracer(pid=self.shard_id))
+            self._instrument_phases()
+        # Every host-synced gate verdict lands in the counters, whichever
+        # crossing produced it.
+        self.page_io.verdict_hooks.append(self._on_verdict)
+
+    def _on_verdict(self, ok: bool, op: str, ctx: dict) -> None:
+        self.stats["integrity_verdicts"] += 1
+        if not ok:
+            self.stats["integrity_failures"] += 1
+
+    def _observe_ttft(self, req: Request) -> None:
+        self._ttft_ticks.observe(req.first_tick - req.submit_tick)
+        if req.submit_time:
+            self._ttft_seconds.observe(time.perf_counter() - req.submit_time)
+
+    def _instrument_phases(self) -> None:
+        """Wrap the tick phases of this instance in spans + histograms.
+
+        Instance attributes shadow the methods, so :meth:`step` (also
+        wrapped, as the ``tick`` span) reaches the timed phases.  The
+        spans are host time: a decode dispatch returns before the card
+        has run it, and the tick syncs only on its verdict in
+        ``_decode_collect``.
+        """
+        h = metrics_mod.ENGINE_HISTOGRAMS
+        tracer = self.tracer
+
+        def timed(span_name, fn, hist):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter_ns()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    t1 = time.perf_counter_ns()
+                    tracer.add(span_name, t0, t1, {"tick": self.tick})
+                    hist.observe((t1 - t0) / 1e9)
+            return wrapper
+
+        for name in ("_tick_begin", "_decode_dispatch", "_decode_collect",
+                     "_tick_end"):
+            key = f"phase{name}_seconds"
+            hist = self.metrics.histogram(key, h[key])
+            setattr(self, name, timed(name.lstrip("_"), getattr(self, name),
+                                      hist))
+        tick_hist = self.metrics.histogram("tick_seconds",
+                                           h["tick_seconds"])
+        self.step = timed("tick", self.step, tick_hist)
+
+    @property
+    def stats(self):
+        """The counters under the dict API (a
+        :class:`repro_torch.obs.metrics.StatsView`)."""
+        return self._stats
+
+    def _audit(self, event: str, **fields) -> None:
+        """Append one security event (nothing without an audit log)."""
+        if self.audit is not None:
+            self.audit.append(event, shard=self.shard_id,
+                              scheme=self.scheme, tick=self.tick, **fields)
+            self.stats["audit_events"] += 1
+
+    def _integrity_fail(self, msg: str, **ctx) -> IntegrityError:
+        """Audit and build (the caller raises) one integrity failure;
+        ``ctx`` (op, tenant, slot, page/pages) rides on it as
+        ``err.ctx``, so containment can quarantine the named pages
+        without localizing again."""
+        self._audit("integrity_error", detail=msg, **ctx)
+        err = IntegrityError(msg)
+        err.ctx = dict(ctx)
+        return err
+
+    def snapshot(self) -> dict:
+        """JSON-able metrics snapshot (gauges sampled now)."""
+        return self.metrics.snapshot()
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition of this engine's metrics."""
+        return self.metrics.prometheus()
+
+    def export_trace(self, path: Optional[str] = None) -> dict:
+        """Chrome trace-event JSON of the recorded phase spans."""
+        if self.tracer is None:
+            raise ValueError("engine was built without trace=...")
+        return self.tracer.export(path)
 
     # -- decode / prefill builders -----------------------------------------
 
@@ -468,9 +664,11 @@ class SecureServingEngine(SubmitAPI):
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, prompt, max_new_tokens, submit_tick=self.tick,
-                      share_prefix=bool(request.share_prefix))
+                      share_prefix=bool(request.share_prefix),
+                      submit_time=time.perf_counter())
         self.requests[rid] = req
         if tenant is not None:
+            req.tenant_idx = tenant.index
             if not self._tenant_active(tenant.index):
                 self._activate_vtime(tenant.index)
             self._tenant_waiting.setdefault(tenant.index,
@@ -556,6 +754,9 @@ class SecureServingEngine(SubmitAPI):
         proof = self.merkle.audit_proof(
             pages, tenant=None if tenant is None else tenant.index)
         self.stats["audit_proofs"] += 1
+        self._audit("audit_proof",
+                    tenant=None if tenant is None else tenant.tenant_id,
+                    pages=len(proof.pages), root=proof.root)
         return proof
 
     def share_prefix(self, tokens, *, from_session, to_session) -> int:
@@ -584,7 +785,7 @@ class SecureServingEngine(SubmitAPI):
         src_entries = src_chain[len(matched_dst):]
         short = pc.free_capacity()
         if short < len(missing):
-            self.free_pages.extend(pc.reclaim(len(missing) - short))
+            self._free(pc.reclaim(len(missing) - short))
         k = min(len(missing), pc.free_capacity(), len(self.free_pages))
         if k == 0:
             return 0
@@ -597,15 +798,19 @@ class SecureServingEngine(SubmitAPI):
             dst=(dst.index, self.registry.cache_row(dst.index),
                  kvp.PREFIX_ROLE),
             lanes=max(self.pages_per_slot, k))
-        if not ok:
-            self.free_pages.extend(dst_pages)
-            raise IntegrityError(
+        if not self.page_io.report_verdict(ok, "prefix_share"):
+            self._free(dst_pages)
+            raise self._integrity_fail(
                 f"reseal-on-share {src.tenant_id!r} -> {dst.tenant_id!r} "
-                f"failed source verification")
+                f"failed source verification", op="prefix_share",
+                tenant=src.tenant_id, to_tenant=dst.tenant_id,
+                pages=[int(e.page_id) for e in src_entries])
         parent = matched_dst[-1] if matched_dst else None
         for (key, n_tok), page_id in zip(missing, dst_pages):
             parent = pc.insert(key, parent, page_id, n_tok)
         self.stats["prefix_shared_pages"] += k
+        self._audit("prefix_share", tenant=src.tenant_id,
+                    to_tenant=dst.tenant_id, pages=k)
         return k
 
     def _copy_pages(self, src_ids: list, dst_ids: list, *, src: tuple,
@@ -613,8 +818,8 @@ class SecureServingEngine(SubmitAPI):
         """Reseal pages ``src_ids`` into ``dst_ids`` (one
         :meth:`PageIO.copy`, padded to ``lanes`` with the scratch page);
         ``src`` / ``dst`` are the ``(tenant index, bank row, epoch
-        word)`` of each side.  Returns the source verdict; nothing was
-        written when it is False."""
+        word)`` of each side.  Returns the source verdict, synced to the
+        host before any write; nothing was written when it is False."""
         bank = self._bank()
 
         def ids(pages):
@@ -631,7 +836,7 @@ class SecureServingEngine(SubmitAPI):
         _, ok = self.page_io.copy(self.pool, ids(src_ids), ids(dst_ids),
                                   vn_mod.kv_page_vn(self._next_epoch()),
                                   ctx(*src), ctx(*dst))
-        return bool(ok)
+        return ok
 
     def _pre_rotation(self, tenant, new_epoch: int) -> None:
         """Eagerly reseal this engine's pages about to leave the key
@@ -670,16 +875,22 @@ class SecureServingEngine(SubmitAPI):
         new_ctx = kvp.PageKeyCtx.make(
             bank, np.full((n,), self.registry.key_row(tenant.index, to_epoch),
                           np.int64), owners, np.full((n,), to_epoch, np.int64))
+        # The reseal writes nothing unless its read verified: resealing
+        # tampered bytes would launder them under fresh, valid MACs.
         _, ok = self.page_io.reseal(
             self.pool, torch.as_tensor(page_ids, device=self.device),
             vn_mod.kv_page_vn(self._next_epoch()), old_ctx, new_ctx)
-        if not bool(ok):
-            raise IntegrityError(
+        if not self.page_io.report_verdict(ok, "reseal"):
+            raise self._integrity_fail(
                 f"reseal of slot {slot_idx} pages {page_pos} failed "
-                f"verification (tenant {tenant.tenant_id!r})")
+                f"verification (tenant {tenant.tenant_id!r})",
+                op="reseal", tenant=tenant.tenant_id, slot=slot_idx,
+                pages=[int(slot.pages[j]) for j in page_pos])
         for j in page_pos:
             slot.page_epochs[j] = to_epoch
         self.stats["reseals"] += 1
+        self._audit("reseal", tenant=tenant.tenant_id, slot=slot_idx,
+                    pages=len(page_pos), to_epoch=to_epoch)
 
     def _on_rotation(self, tenant, new_epoch: int) -> None:
         """Post-rotation hook: preempt any slot still holding a page
@@ -692,12 +903,18 @@ class SecureServingEngine(SubmitAPI):
                             for e in slot.page_epochs)):
                 self._preempt(i)
         self.stats["rotations"] += 1
+        self._audit("rotation", tenant=tenant.tenant_id,
+                    new_epoch=new_epoch)
 
     def tenant_resident_pages(self, index: int) -> int:
         """Pool pages currently owned by one tenant's running slots."""
         return sum(len(s.pages) for s in self.slots
                    if s is not None and s.tenant is not None
                    and s.tenant.index == index)
+
+    @property
+    def n_free_pages(self) -> int:
+        return len(self.free_pages)
 
     def _n_waiting(self) -> int:
         return len(self.waiting) + sum(len(q) for q in
@@ -707,14 +924,37 @@ class SecureServingEngine(SubmitAPI):
     def step(self) -> list:
         """One scheduler tick: admit, grow/evict, batched decode.
 
-        Returns the requests that finished during this tick.
+        Returns the requests that finished during this tick.  With fault
+        tolerance an :class:`IntegrityError` raised by any phase is
+        contained (:meth:`_contain_error`) instead of escaping; skipping
+        the rest of a phase for one tick changes no token, since no
+        slot's bookkeeping advanced for the skipped work.  Containment
+        runs after the phase's verdict sync, so no decode is in flight
+        while it writes the pool.
         """
         finished: list = []
-        active_idx = self._tick_begin(finished)
-        if active_idx:
-            pending = self._decode_dispatch(active_idx)
-            self._decode_collect(active_idx, pending, finished)
-        self._tick_end()
+        if self.ft is None:
+            active_idx = self._tick_begin(finished)
+            if active_idx:
+                pending = self._decode_dispatch(active_idx)
+                self._decode_collect(active_idx, pending, finished)
+            self._tick_end()
+            return finished
+        try:
+            active_idx = self._tick_begin(finished)
+        except IntegrityError as err:
+            self._contain_error(err)
+            active_idx = []
+        try:
+            if active_idx:
+                pending = self._decode_dispatch(active_idx)
+                self._decode_collect(active_idx, pending, finished)
+        except IntegrityError as err:
+            self._contain_error(err)
+        try:
+            self._tick_end()
+        except IntegrityError as err:
+            self._contain_error(err)
         return finished
 
     def _tick_begin(self, finished: list) -> list:
@@ -758,14 +998,40 @@ class SecureServingEngine(SubmitAPI):
             raise RuntimeError("run() exceeded max_ticks")
         result = RunResult({rid: r for rid, r in self.requests.items()
                             if r.state == "finished"})
-        result.latency = latency_percentiles(self.requests.values())
+        result.latency = self.latency_stats()
         return result
 
     def _drained(self) -> bool:
+        """End-of-run verification; True when nothing was requeued.
+
+        Without fault tolerance a failed check raises.  With it, the
+        failure is contained, which may requeue recovering sessions:
+        :meth:`run` then keeps ticking.
+        """
         if self.policy.deferred_model_mac:
-            self._deferred_check()
+            if self.ft is None:
+                self._deferred_check()
+            else:
+                try:
+                    self._deferred_check()
+                except IntegrityError as err:
+                    self._contain_error(err)
+        if not self.verify_every_step and not self.page_io.report_verdict(
+                self._ok_accum, "decode_accum"):
+            err = self._integrity_fail(
+                "accumulated page-MAC verification failed", op="decode_accum")
+            if self.ft is None:
+                raise err
+            self._contain_error(err)
+            self._ok_accum = torch.ones((), dtype=torch.bool,
+                                        device=self.device)
         return not (self._n_waiting()
                     or any(s is not None for s in self.slots))
+
+    def latency_stats(self) -> dict:
+        """p50/p95/p99 ticks-to-first-token and ticks-per-token
+        (finished requests)."""
+        return latency_percentiles(self.requests.values())
 
     def deferred_check(self) -> bool:
         """Model-level deferred MAC over the whole pool (paper Table I)."""
@@ -773,9 +1039,10 @@ class SecureServingEngine(SubmitAPI):
 
     def _deferred_check(self) -> None:
         self.stats["deferred_checks"] += 1
-        if not self.deferred_check():
-            raise IntegrityError("deferred pool-level MAC check failed "
-                                 f"(tick {self.tick}, scheme={self.scheme})")
+        if not self.page_io.report_verdict(self.deferred_check(), "deferred"):
+            raise self._integrity_fail(
+                "deferred pool-level MAC check failed "
+                f"(tick {self.tick}, scheme={self.scheme})", op="deferred")
 
     # -- admission ----------------------------------------------------------
 
@@ -788,13 +1055,20 @@ class SecureServingEngine(SubmitAPI):
         return min(len(req.prompt + req.generated) // self.page_tokens + 1,
                    self.pages_per_slot)
 
+    def _held(self, req: Request) -> bool:
+        """Recovery backoff: re-admission waits past ``hold_until``."""
+        return req.hold_until > self.tick
+
     def _admit(self, finished: list) -> None:
         if self.registry is None:
-            while None in self.slots and self.waiting:
-                req = self.waiting[0]
-                if len(self.free_pages) < self._admission_pages(req):
+            while None in self.slots:
+                # FCFS over requests no recovery backoff holds back.
+                req = next((r for r in self.waiting if not self._held(r)),
+                           None)
+                if req is None or \
+                        len(self.free_pages) < self._admission_pages(req):
                     break
-                self.waiting.popleft()
+                self.waiting.remove(req)
                 self._admit_one(req, None, finished)
             return
         # Weighted-fair (stride) admission across tenant queues: among
@@ -805,7 +1079,7 @@ class SecureServingEngine(SubmitAPI):
         while None in self.slots:
             best = None
             for idx, queue in self._tenant_waiting.items():
-                if not queue:
+                if not queue or self._held(queue[0]):
                     continue
                 tenant = self.registry.by_index(idx)
                 n_alloc = self._admission_pages(queue[0])
@@ -864,9 +1138,11 @@ class SecureServingEngine(SubmitAPI):
         self.slots[slot_idx] = slot
         self.page_table.install(slot_idx, slot)
         req.state = "running"
+        self._note_recovered(req)
         req.generated.append(int(tok[0, 0]))
         if req.first_tick is None:
             req.first_tick = self.tick
+            self._observe_ttft(req)
         if (self.prefix_cache is not None and tenant is not None
                 and req.share_prefix):
             self._prefix_insert(tenant, seq, slot)
@@ -900,6 +1176,15 @@ class SecureServingEngine(SubmitAPI):
         self.slots[slot_idx] = slot
         self.page_table.install(slot_idx, slot)
         req.state = "running"
+        self._note_recovered(req)
+
+    def _note_recovered(self, req: Request) -> None:
+        """Count a recompute-recovery re-admission."""
+        if req.recovering:
+            req.recovering = False
+            self.stats["sessions_recovered"] += 1
+            self._audit("session_recovered", rid=req.rid,
+                        retries=req.integrity_retries)
 
     def _prefix_insert(self, tenant, seq: list, slot: _Slot) -> None:
         """Seed the cache from a freshly prefilled slot (full miss only).
@@ -916,7 +1201,7 @@ class SecureServingEngine(SubmitAPI):
             return              # partial hits never extend the chain here
         short = pc.free_capacity()
         if short < len(missing):
-            self.free_pages.extend(pc.reclaim(len(missing) - short))
+            self._free(pc.reclaim(len(missing) - short))
         k = min(len(missing), pc.free_capacity(), len(self.free_pages))
         if k == 0:
             return
@@ -930,15 +1215,18 @@ class SecureServingEngine(SubmitAPI):
             dst=(tenant.index, self.registry.cache_row(tenant.index),
                  kvp.PREFIX_ROLE),
             lanes=self.pages_per_slot)
-        if not ok:
-            self.free_pages.extend(dst_pages)
-            raise IntegrityError(
+        if not self.page_io.report_verdict(ok, "prefix_insert"):
+            self._free(dst_pages)
+            raise self._integrity_fail(
                 f"prefix-cache insert for tenant {tenant.tenant_id!r} "
-                f"failed source verification")
+                f"failed source verification",
+                op="prefix_insert", tenant=tenant.tenant_id,
+                pages=[int(p) for p in slot.pages[:k]])
         parent = None
         for (key, n_tok), page_id in zip(missing, dst_pages):
             parent = pc.insert(key, parent, page_id, n_tok)
         self.stats["prefix_inserted_pages"] += k
+        self._audit("prefix_insert", tenant=tenant.tenant_id, pages=k)
 
     def _ensure_growth(self) -> None:
         order = sorted((i for i, s in enumerate(self.slots) if s is not None),
@@ -986,7 +1274,7 @@ class SecureServingEngine(SubmitAPI):
         while not self.free_pages:
             freed = self.prefix_cache.reclaim(1)
             if freed:
-                self.free_pages.extend(freed)
+                self._free(freed)
                 break
             self._preempt(self._pick_victim(tenant))
             if self.slots[idx] is None:
@@ -1000,16 +1288,19 @@ class SecureServingEngine(SubmitAPI):
             dst=(tenant.index, self.registry.key_row(tenant.index, epoch),
                  epoch),
             lanes=self.pages_per_slot)
-        if not ok:
-            self.free_pages.append(dst)
-            raise IntegrityError(
+        if not self.page_io.report_verdict(ok, "cow"):
+            self._free([dst])
+            raise self._integrity_fail(
                 f"copy-on-write of slot {idx} shared page {pos} failed "
-                f"verification (tenant {tenant.tenant_id!r})")
+                f"verification (tenant {tenant.tenant_id!r})",
+                op="cow", tenant=tenant.tenant_id, slot=idx,
+                page=int(slot.pages[pos]))
         slot.pages[pos] = dst
         slot.page_epochs[pos] = epoch
         slot.shared_n -= 1
         self.prefix_cache.release([slot.shared_entries.pop()])
         self.stats["prefix_cow_pages"] += 1
+        self._audit("cow", tenant=tenant.tenant_id, slot=idx, page=int(dst))
 
     def _pick_victim(self, tenant=None) -> int:
         """Youngest running slot (LIFO preemption), scoped to
@@ -1031,7 +1322,7 @@ class SecureServingEngine(SubmitAPI):
     def _preempt(self, idx: int) -> None:
         slot = self.slots[idx]
         self._unpin_shared(slot)
-        self.free_pages.extend(slot.pages)
+        self._free(slot.pages)
         self.slots[idx] = None
         self.page_table.clear(idx)
         slot.req.state = "waiting"
@@ -1045,17 +1336,181 @@ class SecureServingEngine(SubmitAPI):
     def _release(self, idx: int) -> None:
         slot = self.slots[idx]
         self._unpin_shared(slot)
-        self.free_pages.extend(slot.pages)
+        self._free(slot.pages)
         self.slots[idx] = None
         self.page_table.clear(idx)
         slot.req.state = "finished"
 
     def _maybe_finish(self, idx: int, finished: list) -> None:
         req = self.slots[idx].req
-        if req.done:
+        hit_eos = (self.eos_id is not None and req.generated
+                   and req.generated[-1] == self.eos_id)
+        if req.done or hit_eos:
             req.done_tick = self.tick
             self._release(idx)
             finished.append(req)
+
+    # -- fault containment (quarantine + secure-recompute recovery) ---------
+
+    def _free(self, pages) -> None:
+        """Return pages to the free list, less quarantined frames."""
+        self.free_pages.extend(p for p in pages
+                               if int(p) not in self.quarantined)
+
+    def _n_recovering(self) -> int:
+        """Sessions preempted for recovery and not yet re-admitted (the
+        SLO monitor's degraded signal)."""
+        return sum(1 for r in self.requests.values() if r.recovering)
+
+    def _commit_repair(self) -> None:
+        """Announce an in-place repair: every listener re-adopts the
+        pool wholesale (``old_pool=None``), since the tamper being
+        repaired bypassed them and no delta can be trusted."""
+        self._notify_pool(None, self.pool)
+
+    def _quarantine_pages(self, pages) -> None:
+        """Retire frames for good after a localized fault.
+
+        They leave the free list forever, the prefix cache drops every
+        entry holding one, their MAC and VN rows are zeroed and the
+        pool MAC is rebuilt from the scrubbed page MACs, so the XOR
+        identity holds again without trusting a tampered byte.  Unlike
+        the reference, which commits a new pool value, the rows are
+        zeroed in place, then :meth:`_commit_repair` tells the
+        listeners.
+        """
+        fresh = sorted({int(p) for p in pages} - self.quarantined)
+        if not fresh:
+            return
+        self.quarantined.update(fresh)
+        self.free_pages = [p for p in self.free_pages
+                           if p not in self.quarantined]
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict_pages(fresh)
+        pool = self.pool
+        ids = torch.as_tensor(fresh, dtype=torch.int64, device=self.device)
+        pool.page_macs[ids] = 0
+        for bm in pool.block_macs:
+            bm[ids] = 0
+        pool.page_vns[ids] = 0
+        pool.pool_mac.copy_(
+            mac_mod.xor_aggregate(pool.page_macs[: self.spec.n_pages]))
+        self._commit_repair()
+        self.stats["integrity_quarantined_pages"] += len(fresh)
+        self._audit("quarantine", pages=fresh)
+
+    def _rebuild_pool_mac(self) -> None:
+        """Recompute the deferred pool MAC from the stored page MACs.
+
+        The fallback when localization finds no failing page yet a
+        pool-level check failed: the pool MAC itself was hit, and the
+        page MACs all just verified.  Free pages' MACs are not verified
+        here, but they protect no live data and are rewritten by their
+        next prefill."""
+        pool = self.pool
+        pool.pool_mac.copy_(
+            mac_mod.xor_aggregate(pool.page_macs[: self.spec.n_pages]))
+        self._commit_repair()
+        self._audit("pool_mac_rebuild")
+
+    def _probe_page(self, slot_idx: int, pos: int) -> bool:
+        """Re-read one resident page through the raw verify path.
+
+        Tried ``1 + ft.reread_retries`` times, so a transient fault does
+        not condemn a healthy frame; each verdict is reported (op
+        ``probe``).  One page per read, as the reference probes: on
+        ``seda`` with kernels that is a single-key crossing (B1 + B2)
+        per leaf, or a mixed-key one (B4 + B5) in tenant mode."""
+        slot = self.slots[slot_idx]
+        pid = int(slot.pages[pos])
+        ids = torch.tensor([pid], dtype=torch.int64, device=self.device)
+        ctx = None
+        if self.registry is not None:
+            tenant = slot.tenant
+            epoch = slot.page_epochs[pos]
+            if epoch & kvp.PREFIX_ROLE:
+                row = self.registry.cache_row(tenant.index)
+            else:
+                try:
+                    row = self.registry.key_row(tenant.index, epoch)
+                except KeyError:
+                    return False        # unverifiable == condemned
+            ctx = kvp.PageKeyCtx.make(self._bank(), [row], [tenant.index],
+                                      [epoch])
+        attempts = 1 + (self.ft.reread_retries if self.ft is not None else 0)
+        for _ in range(attempts):
+            _, ok = self.page_io.read_raw(self.pool, ids, ctx)
+            if self.page_io.report_verdict(ok, "probe", slot=slot_idx,
+                                           page=pid):
+                return True
+        return False
+
+    def _localize(self, slot_idxs=None) -> list:
+        """Probe every resident page of the given (default: all) slots;
+        ``[(slot_idx, pos, page_id), ...]`` for each page that fails
+        every re-read."""
+        idxs = (slot_idxs if slot_idxs is not None
+                else range(self.max_slots))
+        bad = []
+        for i in idxs:
+            slot = self.slots[i]
+            if slot is None:
+                continue
+            for pos in range(len(slot.pages)):
+                if not self._probe_page(i, pos):
+                    bad.append((i, pos, int(slot.pages[pos])))
+        return bad
+
+    def _preempt_recover(self, idx: int) -> None:
+        """Preempt one slot for secure-recompute recovery, or declare
+        its session lost once the retry budget is spent."""
+        slot = self.slots[idx]
+        req = slot.req
+        req.integrity_retries += 1
+        if self.ft is not None and \
+                req.integrity_retries > self.ft.max_retries:
+            self._unpin_shared(slot)
+            self._free(slot.pages)
+            self.slots[idx] = None
+            self.page_table.clear(idx)
+            req.state = "failed"
+            req.recovering = False
+            self.stats["sessions_lost"] += 1
+            self._audit("session_lost", rid=req.rid, slot=idx,
+                        retries=req.integrity_retries)
+            return
+        req.recovering = True
+        if self.ft is not None and self.ft.backoff_ticks:
+            req.hold_until = self.tick + self.ft.backoff_ticks * (
+                1 << (req.integrity_retries - 1))
+        self._audit("session_recovery", rid=req.rid, slot=idx,
+                    retries=req.integrity_retries)
+        self._preempt(idx)
+
+    def _contain_error(self, err: IntegrityError) -> None:
+        """Quarantine and recover after a caught integrity failure.
+
+        Pages the error names are condemned directly; otherwise every
+        resident page is probed.  When nothing fails for good (a
+        transient fault, or a hit on the pool MAC itself) the pool MAC
+        is rebuilt instead, so the next deferred check passes without
+        laundering a tampered page."""
+        ctx = getattr(err, "ctx", None) or {}
+        pages = [int(p) for p in ctx.get("pages", [])]
+        if "page" in ctx and int(ctx["page"]) not in pages:
+            pages.append(int(ctx["page"]))
+        if not pages:
+            pages = [b[2] for b in self._localize()]
+        self._audit("fault_contained", detail=str(err),
+                    op=ctx.get("op"), pages=pages)
+        if pages:
+            self._quarantine_pages(pages)
+            for i, slot in enumerate(self.slots):
+                if slot is not None and any(
+                        int(p) in self.quarantined for p in slot.pages):
+                    self._preempt_recover(i)
+        else:
+            self._rebuild_pool_mac()
 
     # -- decode -------------------------------------------------------------
 
@@ -1129,10 +1584,12 @@ class SecureServingEngine(SubmitAPI):
                     key_idx[i, j] = self.registry.key_row(tenant.index,
                                                           epoch)
                 except KeyError as e:
-                    raise IntegrityError(
+                    raise self._integrity_fail(
                         f"slot {i} page {j}: {e.args[0]} (stale_epoch, "
                         f"tenant {tenant.tenant_id!r}, page "
-                        f"{slot.pages[j]})") from e
+                        f"{slot.pages[j]})",
+                        op="stale_epoch", tenant=tenant.tenant_id,
+                        slot=i, page=int(slot.pages[j])) from e
         return ((key_idx, owners, key_epochs, cur_key_idx, cur_epochs),
                 False)
 
@@ -1183,6 +1640,7 @@ class SecureServingEngine(SubmitAPI):
         if kvp._kernel_write_ok(self.spec) and self.spec.cfg.verify != "none":
             self.stats["fused_write_ticks"] += 1
         self.stats["decode_page_reads"] += len(active_idx) * bucket
+        self._bucket_hist.observe(bucket)
         toks, ok = decode_fn(*args)
         self.stats["decode_steps"] += 1
         return toks, ok
@@ -1191,13 +1649,18 @@ class SecureServingEngine(SubmitAPI):
                         finished: list) -> None:
         """Sync on a dispatched decode and apply host bookkeeping."""
         toks, ok = pending
-        if not bool(ok):
-            raise IntegrityError(
-                f"page MAC verification failed at tick {self.tick} "
-                f"(scheme={self.scheme})")
+        if self.verify_every_step:
+            if not self.page_io.report_verdict(ok, "decode"):
+                self._decode_failure(active_idx)
+        else:
+            self._ok_accum = self._ok_accum & ok
         toks = toks.cpu().numpy()
         for i in active_idx:
             slot = self.slots[i]
+            if slot is None:
+                continue    # quarantined and preempted by _decode_failure:
+                            # recompute recovery replays from its last
+                            # good token, so nothing here may advance.
             if slot.tenant is not None:
                 # The dirty page was just re-encrypted under the tenant's
                 # CURRENT epoch (lazy rotation lands here).
@@ -1213,4 +1676,39 @@ class SecureServingEngine(SubmitAPI):
             slot.req.generated.append(int(toks[i, 0]))
             if slot.req.first_tick is None:
                 slot.req.first_tick = self.tick
+                self._observe_ttft(slot.req)
             self._maybe_finish(i, finished)
+
+    def _decode_failure(self, active_idx: list) -> None:
+        """The decode gate failed: localize, then contain.
+
+        Every active slot's resident pages are probed and the ones that
+        fail for good condemned.  Without fault tolerance the error
+        raises, naming those pages in ``err.ctx``.  With it their frames
+        are quarantined and only their slots preempted for recovery;
+        every other slot's reads verified, so its token and dirty write
+        stand.  An empty localization is a transient fault: the tick's
+        reads now verify, so nothing is preempted.  (The tick's dirty
+        pages were already written back by the decode, as the reference
+        commits its decode's pool before this gate.)"""
+        bad = self._localize(active_idx)
+        ctx = {}
+        if bad:
+            slot = self.slots[bad[0][0]]
+            ctx = dict(slot=bad[0][0], pages=[b[2] for b in bad])
+            if slot is not None and slot.tenant is not None:
+                ctx["tenant"] = slot.tenant.tenant_id
+        if self.ft is None:
+            raise self._integrity_fail(
+                f"page MAC verification failed at tick {self.tick} "
+                f"(scheme={self.scheme}, shard={self.shard_id})",
+                op="decode", **ctx)
+        if not bad:
+            self._audit("transient_fault", op="decode")
+            return
+        self._audit("fault_contained", op="decode",
+                    pages=[b[2] for b in bad])
+        self._quarantine_pages([b[2] for b in bad])
+        for idx in sorted({b[0] for b in bad}):
+            if self.slots[idx] is not None:
+                self._preempt_recover(idx)

@@ -491,11 +491,21 @@ def _page_block_macs(spec: PageSpec, leaf: LeafPageSpec, ct: torch.Tensor,
     n = page_ids.shape[0]
     binding = _block_binding(spec, leaf, page_ids, vns, ctx)
     blocks = ct.reshape(-1, cfg.block_bytes)
+    if ctx is not None and not uniform and cfg.mac_engine != "nh":
+        # The AES-chained engines (cbc, naive): one block_macs call per
+        # page under its own bank row, as the reference vmaps them.
+        nb = leaf.n_blocks
+        fields = [torch.broadcast_to(f, (n * nb,)).reshape(n, nb)
+                  for f in binding]
+        return torch.stack([
+            mac.block_macs(blocks[i * nb:(i + 1) * nb],
+                           mac.Binding(*(f[i] for f in fields)),
+                           hash_key_u32=ctx.bank_hash_key[ctx.key_idx[i]],
+                           round_keys=ctx.bank_round_keys[ctx.key_idx[i]],
+                           engine=cfg.mac_engine)
+            for i in range(n)])
     if ctx is not None and not uniform:
         # Per-page NH key and finalizer schedule, batched over pages.
-        if cfg.mac_engine != "nh":
-            raise ValueError(f"MAC engine {cfg.mac_engine!r} is not ported "
-                             "(nh only)")
         payload = mac.nh_payload(blocks, binding)
         lanes = payload.shape[-1]
         if ctx.bank_hash_key.shape[-1] < lanes:
@@ -655,12 +665,35 @@ class PageIO:
 
     ``write_listeners`` are called as ``listener(pool)`` after every
     write into a pool (the pool is updated in place).
+
+    ``verdict_hooks`` observe every MAC-gate verdict the caller syncs to
+    the host and hands to :meth:`report_verdict`, as
+    ``hook(ok, op, ctx)``; ``fault_hooks`` (fault injection,
+    :mod:`repro_torch.serve.faults`) may rewrite a verdict first, so an
+    injected failure looks like a real one downstream.  Both are empty
+    unless an engine or a test attaches one.
     """
 
     def __init__(self, spec: PageSpec, keys):
         self.spec = spec
         self.keys = keys
         self.write_listeners: list = []
+        self.verdict_hooks: list = []
+        self.fault_hooks: list = []
+
+    def report_verdict(self, ok, op: str, **ctx) -> bool:
+        """Sync one gate verdict and fan it out to the hooks.
+
+        Returns ``bool(ok)`` after the fault hooks, so a gate reads
+        ``if not io.report_verdict(ok, "decode"): ...`` with the one
+        device sync the gate needs anyway.
+        """
+        ok = bool(ok)
+        for hook in self.fault_hooks:
+            ok = bool(hook(ok, op, ctx))
+        for hook in self.verdict_hooks:
+            hook(ok, op, ctx)
+        return ok
 
     def read(self, pool: PagedKVPool, page_table: torch.Tensor,
              lengths: torch.Tensor, ctx: PageKeyCtx | None = None,
@@ -850,14 +883,15 @@ class PageIO:
         """Decrypt N pages under ``old_ctx`` and re-protect them under
         ``new_ctx`` at the same page ids (the eager-rotation primitive).
 
-        Plaintext is preserved bit for bit.  Returns ``(pool, ok)``.  The
-        pool is written in place, so unlike the reference this method
-        syncs on the read verdict first and writes nothing when it
-        fails: resealing tampered bytes would launder them under fresh,
-        valid MACs.
+        Plaintext is preserved bit for bit.  Returns ``(pool, ok)``,
+        ``ok`` the host verdict.  The pool is written in place, so
+        unlike the reference this method syncs on the read verdict first
+        and writes nothing when it fails: resealing tampered bytes would
+        launder them under fresh, valid MACs.
         """
         leaf_pages, ok = self.read_raw(pool, page_ids, old_ctx, uniform)
-        if not bool(ok):
+        ok = bool(ok)
+        if not ok:
             return pool, ok
         page_ids = page_ids.to(torch.int64)
         real = page_ids < self.spec.n_pages
@@ -894,7 +928,7 @@ class PageIO:
         nothing when it fails: a tampered source must not be laundered
         into freshly MACed pages.  ``src_ids`` / ``dst_ids`` are host
         arrays (checked against the pools here) or tensors.  Returns
-        ``(dst_pool, ok)``.
+        ``(dst_pool, ok)``, ``ok`` the host verdict (the one sync).
         """
         dst_spec = self.spec
         if src_spec.leaves != dst_spec.leaves:
@@ -912,7 +946,8 @@ class PageIO:
                              f"{dst_ids.shape[0]} destinations")
         leaf_pages, ok = PageIO(src_spec, self.keys).read_raw(
             src_pool, src_ids, src_ctx)
-        if not bool(ok):
+        ok = bool(ok)
+        if not ok:
             return dst_pool, ok
         real = dst_ids < dst_spec.n_pages
         return self.write(dst_pool, dst_ids, leaf_pages, vn, real,

@@ -6,7 +6,10 @@ operands must raise.  The weights boundary (``protect`` / ``unprotect``
 and checkpoints) on the card gives the CPU's bytes, and its narrow
 B-AES and NH MACs go through the kernels.  A prefix-cache run (hits,
 copy-on-write, reseal-on-share) gives the CPU's tokens and counters and
-goes through the mixed-key kernels.
+goes through the mixed-key kernels.  A fault-tolerant run that contains
+a bitflip (and, with tenants, a corrupted page MAC) gives the CPU's
+tokens, quarantined frames and containment counters, its probes on the
+single-key or the mixed-key kernels.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -528,3 +531,62 @@ def test_prefix_cache_on_the_card_equals_cpu(card):
     for name in ("aes_ctr_keystream_multi", "fused_crypt_mac_mixed",
                  "fused_crypt_mac_write_mixed"):
         assert gpu[3][name] > 0, name
+
+
+def _contained_run(device, params, tenants: int):
+    """A bitflip (and, with tenants, a corrupted page MAC) contained by
+    the fault-tolerant engine on the smoke config."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import SecureServingEngine
+    from repro_torch.serve.faults import Fault, FaultPlan
+    arch = get_arch("minitron-4b")
+    kw, sessions = {}, [None]
+    if tenants:
+        reg = TenantRegistry(KeyHierarchy(4, device=device),
+                             max_tenants=tenants)
+        for t in range(tenants):
+            reg.register(f"t{t}")
+        sessions = [reg.open_session(f"t{t}") for t in range(tenants)]
+        kw = dict(registry=reg, rotate_every=1)
+    eng = SecureServingEngine(arch, arch.make_smoke_config(), params,
+                              scheme="seda", use_kernel=True, max_slots=2,
+                              page_tokens=4, pages_per_slot=4, n_pages=12,
+                              fault_tolerance=True, audit=True,
+                              device=device, **kw)
+    faults = [Fault(tick=3, kind="bitflip", slot=tenants and 1)]
+    if tenants:
+        faults.append(Fault(tick=2, kind="mac_corrupt", slot=0))
+    plan = FaultPlan(faults).attach(eng)
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, 256, n))) for n in (6, 5)]
+    rids = [eng.submit(prompt=p, max_new_tokens=4,
+                       session=sessions[i % len(sessions)])
+            for i, p in enumerate(prompts)]
+    reset_launches()
+    eng.run()
+    counters = {k: eng.stats[k] for k in (
+        "integrity_verdicts", "integrity_failures",
+        "integrity_quarantined_pages", "sessions_recovered",
+        "sessions_lost", "audit_events", "preemptions")}
+    return ([eng.requests[r].generated for r in rids], sorted(eng.quarantined),
+            counters, len(plan.fired), eng.audit.verify_chain(),
+            dict(LAUNCHES))
+
+
+@pytest.mark.parametrize("tenants", [0, 2])
+def test_containment_on_the_card_equals_cpu(card, tenants):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    cfg = get_arch("minitron-4b").make_smoke_config()
+    params = init_params(lm.lm_specs(cfg), 0, device="cpu")
+    cpu = _contained_run("cpu", params, tenants)
+    gpu = _contained_run(card, params, tenants)
+    assert gpu[:5] == cpu[:5]
+    assert gpu[1] and gpu[2]["sessions_lost"] == 0 and gpu[4]
+    assert gpu[3] == (2 if tenants else 1)
+    assert all(v == 0 for v in cpu[5].values())
+    route = (("aes_ctr_keystream_multi", "fused_crypt_mac_mixed")
+             if tenants else ("aes_ctr_keystream", "fused_crypt_mac"))
+    for name in route:
+        assert gpu[5][name] > 0, name

@@ -9,7 +9,11 @@
   ``repro.serve.engine.SecureServingEngine(..., merkle=False)`` for
   ``off``, ``seda`` (port with ``use_kernel=True``, reference with the
   bit-identical core route) and ``mgx64``.
+* The dense loop (``serve_step``, the launcher's ``--engine simple``):
+  the paged ``off`` engine's tokens, and the reference's loop.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -212,6 +216,26 @@ def test_engine_tokens_match_reference(smoke, scheme):
     assert (eng.stats["fused_write_ticks"] > 0) == (scheme == "seda")
 
 
+def test_engine_eos_matches_reference(smoke):
+    """``eos_id`` ends a request at that token, as in the reference."""
+    j_arch, j_cfg, j_params, arch, cfg, params = smoke
+    free = JEngine(j_arch, j_cfg, j_params, scheme="off", merkle=False,
+                   **ENGINE_KW)
+    rids = [free.submit(prompt=p, max_new_tokens=4) for p in _prompts()]
+    eos = free.run()[rids[0]].generated[1]
+    j_eng = JEngine(j_arch, j_cfg, j_params, scheme="off", merkle=False,
+                    eos_id=eos, **ENGINE_KW)
+    eng = SecureServingEngine(arch, cfg, params, scheme="off", eos_id=eos,
+                              device="cpu", **ENGINE_KW)
+    got = []
+    for e in (j_eng, eng):
+        rids = [e.submit(prompt=p, max_new_tokens=4) for p in _prompts()]
+        done = e.run()
+        got.append([(done[r].generated, done[r].done_tick) for r in rids])
+    assert got[1] == got[0]
+    assert got[1][0][0][-1] == eos and len(got[1][0][0]) <= 2
+
+
 def _eng(smoke, **kw):
     _, _, _, arch, cfg, params = smoke
     merged = dict(ENGINE_KW, device="cpu", **kw)
@@ -263,3 +287,40 @@ def test_engine_submit_surface_and_device(smoke):
         _, _, _, arch, cfg, params = smoke
         with pytest.raises(RuntimeError, match="cpu"):
             SecureServingEngine(arch, cfg, params, scheme="off")
+
+
+def test_simple_engine_matches_paged_off_and_reference_loop(smoke):
+    """``--engine simple`` gives the paged ``off`` engine's tokens on the
+    same prompts, and its serve steps the reference's dense loop."""
+    from repro.serve import serve_step as j_step
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import serve_step
+    argv = ["--smoke", "--device", "cpu", "--batch", "3", "--prompt-len",
+            "6", "--gen-len", "5"]
+    simple = launch.main(argv + ["--engine", "simple"])
+    paged = launch.main(argv + ["--engine", "paged", "--scheme", "off"])
+    assert simple["tokens"].shape == (3, 5)
+    assert (simple["tokens"] == paged["tokens"]).all()
+    j_arch, j_cfg, j_params, arch, cfg, params = smoke
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab, (2, 5))
+    j_prefill = jax.jit(j_step.make_prefill_step(j_arch, j_cfg, 9))
+    j_decode = jax.jit(j_step.make_decode_step(j_arch, j_cfg))
+    prefill = serve_step.make_prefill_step(arch, cfg, 9)
+    decode = serve_step.make_decode_step(arch, cfg)
+    j_logits, j_caches = j_prefill(j_params, {"tokens": jnp.asarray(
+        prompts, jnp.int32)})
+    with torch.no_grad():
+        logits, caches = prefill(params, {"tokens": _t(prompts)})
+    j_tok, tok = j_step.greedy_sample(j_logits), serve_step.greedy_sample(
+        logits)
+    for _ in range(4):
+        assert (np.asarray(j_tok) == tok.numpy()).all()
+        j_logits, j_caches = j_decode(j_params, j_tok, j_caches)
+        with torch.no_grad():
+            logits, caches = decode(params, tok, caches)
+        j_tok = j_step.greedy_sample(j_logits)
+        tok = serve_step.greedy_sample(logits)
+    assert (np.asarray(j_tok) == tok.numpy()).all()
+    with pytest.raises(NotImplementedError):
+        serve_step.make_decode_step(
+            dataclasses.replace(arch, kind="encdec"), cfg)

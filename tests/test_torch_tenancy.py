@@ -262,6 +262,51 @@ def test_page_io_mixed_ctx_matches(smoke, scheme):
         assert all(torch.equal(a, b) for a, b in zip(snapshot, pool.cts))
 
 
+@pytest.mark.parametrize("engine", ["cbc", "naive"])
+def test_mixed_ctx_aes_mac_engines_match(smoke, monkeypatch, engine):
+    """A custom scheme whose MAC engine is ``cbc`` or ``naive`` (no entry
+    of SCHEMES has one), under a mixed ctx: the pool's MAC bytes and the
+    verdicts equal the reference's, which computes them page by page."""
+    from repro.core import secure_exec as j_exec
+    from repro_torch.core import secure_exec as t_exec
+    _, j_cfg, _, _, cfg, _ = smoke
+    name = f"mgx64-{engine}"
+    for mod in (j_exec, t_exec):
+        monkeypatch.setitem(mod.SCHEMES, name, mod.SchemeConfig(
+            name, 64, "block", engine, False, False, False))
+    j_reg, reg = _registries(2, 37, rotate=["t1"])
+    kw = dict(scheme=name, page_tokens=PAGE_TOKENS, n_pages=N_PAGES,
+              max_slots=MAX_SLOTS, max_len=MAX_LEN, use_kernel=False)
+    j_spec = j_kvp.build_page_spec(j_lm.cache_specs(j_cfg, MAX_SLOTS,
+                                                    MAX_LEN), **kw)
+    tree = lm.cache_specs(cfg, MAX_SLOTS, MAX_LEN)
+    spec = kvp.build_page_spec(tree, **kw)
+    j_io, io = j_kvp.PageIO(j_spec, None), kvp.PageIO(spec, None)
+    j_pool, pool = j_kvp.init_pool(j_spec), kvp.init_pool(spec, "cpu")
+    leaf_shape = tree[0][0].k.shape
+    rng = np.random.default_rng(41)
+    pages = [rng.standard_normal((4, leaf_shape[0], PAGE_TOKENS)
+                                 + leaf_shape[3:]).astype(np.float32)
+             for _ in spec.leaves]
+    ids, real = np.array([3, 2, 1, 0], np.int32), np.ones(4, bool)
+    j_mixed, mixed = _ctxs(j_reg, reg, [0, 0, 1, 1], [0, 0, 0, 1])
+    j_pool = j_io.write(j_pool, jnp.asarray(ids),
+                        list(map(jnp.asarray, pages)),
+                        j_kv_page_vn(np.uint32(1)), jnp.asarray(real),
+                        j_mixed)
+    io.write(pool, _t(ids).long(), [_t(p) for p in pages], kv_page_vn(1),
+             _t(real), mixed)
+    _assert_same(_pool_state(j_pool, N_PAGES, False),
+                 _pool_state(pool, N_PAGES, True))
+    raw, ok = io.read_raw(pool, _t(ids).long(), mixed)
+    assert bool(ok) and bool(j_io.read_raw(j_pool, jnp.asarray(ids),
+                                           j_mixed)[1])
+    for a, b in zip(pages, raw):
+        assert (a == b.numpy()).all()
+    _, swapped = _ctxs(j_reg, reg, [1, 1, 0, 0], [1, 1, 0, 0])
+    assert not bool(io.read_raw(pool, _t(ids).long(), swapped)[1])
+
+
 def test_ctx_make_refuses_rows_outside_the_bank():
     _, reg = _registries(1, 3)
     with pytest.raises(IndexError):
@@ -432,9 +477,12 @@ def test_engine_tenant_surface(smoke):
 def test_launcher_argument_errors():
     with pytest.raises(SystemExit, match="--tenants"):
         launch.main(["--smoke", "--device", "cpu", "--rotate-every", "2"])
-    # --ckpt-dir is accepted (tests/test_torch_checkpoint.py serves one)
-    for flag in (["--engine", "simple"], ["--shards", "2"],
-                 ["--fault-tolerance"]):
+    # --ckpt-dir is accepted (tests/test_torch_checkpoint.py serves one);
+    # the simple loop takes no tenants and no paged-engine flags, and
+    # sharding and the device-cost profile are not ported.
+    for flag in (["--engine", "simple", "--tenants", "2"],
+                 ["--engine", "simple", "--fault-tolerance"],
+                 ["--shards", "2"], ["--profile-json", "p.json"]):
         with pytest.raises(SystemExit):
             launch.main(["--smoke", "--device", "cpu", *flag])
     with pytest.raises(ValueError, match="pool"):
