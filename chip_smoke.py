@@ -82,20 +82,45 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              verified bit-equal; the engine serves the same tokens from
              the restored and the original weights; a flipped byte of a
              leaf file raises ``CheckpointError``.
-13. launch — the port's launcher (``repro_torch.launch.serve.main``) at
+13. shards — the serve phase's weights and requests through
+             ``ClusterEngine``: 2 logical shards on the card, 4 slots and
+             40 pages a shard.  seda with and without the kernels and
+             ``off`` (in turns, twice each) give identical tokens, both
+             shards' pools (cts, page MACs, VNs, pool MAC) are
+             byte-equal with the kernels on and off, B1-B3 launch and
+             the deferred cluster root MAC holds.  In float32 at full
+             width: the cluster's tokens are the single engine's; three
+             requests whose growth one shard cannot hold migrate a slot
+             (no preemption, every request admitted once, the single
+             engine's tokens, every migration proof verified; each
+             migration's host ms and launches printed); ``shard_kill`` on
+             shard 1 at tick 3 fails over with no session lost and the
+             fault-free tokens (its host ms printed).  The tenants
+             phase's 4 tenants across the shards: kernels and plain give
+             equal tokens, B4-B6 launch, reseals fire on both shards.
+             A page of shard 0 copied into shard 1's pool fails the next
+             tick; a pool swapped in around the listeners fails the
+             root, and still does one tick later.  A CUPTI trace of 3
+             steady cluster ticks beside the profile phase's tick.
+14. launch — the port's launcher (``repro_torch.launch.serve.main``) at
              full width with 4 tenants and a rotation every tick, after
              the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
              the deferred pool MAC OK; ``--audit-proof-out`` writes one
              proof per tenant, each verified against its root;
              ``--fault-tolerance`` with the trace, metrics and audit-log
              files, each parsed (the chain verifies, the snapshot's
-             counters are the run's).  Then ``--engine simple`` gives the
-             tokens of ``--engine paged --scheme off`` on the same
-             prompts.
+             counters are the run's, the engine's ``tick`` span).  The
+             same run with ``--shards 2``: the deferred cluster root MAC
+             OK, one proof per tenant and shard, each verified against
+             its shard root and chained to the cluster root, the
+             cluster's snapshot, per shard labels and ``cluster_tick``
+             spans.  Then ``--engine simple`` gives the tokens of
+             ``--engine paged --scheme off`` on the same prompts.
 
 Each path whose launches are reported (serve, tenants, prefix, each
-containment of the faults phase, weights) is driven with the counts set
-to 0 just before it and read just after.  Then a
+containment of the faults phase, weights, the shards phase's first
+kernel runs) is driven with the counts set to 0 just before it and read
+just after.  Then a
 ``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -789,6 +814,7 @@ def phase_profile(arch, cfg, results: dict) -> dict:
         out[key] = _profile_ticks(arch, cfg, results["params"],
                                   results["prompts"], scheme, use_kernel,
                                   tenants)
+    results["profile_seda"] = out["seda_kernel"]
     return out
 
 
@@ -1668,10 +1694,451 @@ def phase_checkpoint(arch, cfg, results: dict) -> dict:
             "tampered_leaf": leaf.name, "rejected": rejected}
 
 
-def phase_launch(results: dict) -> dict:
-    import gc
+# The shards phase: 2 logical shards on the one card, per shard 4 slots
+# and 40 pages (the serve phase's 8 slots and 80 pages split), so the
+# serve phase's 8 requests fit without a migration.
+SHARDS = dict(shards=2, max_slots=4, n_pages=40)
+# The migration traffic: two long decodes routed to shard 0, a short
+# one to shard 1; 16 pages a shard hold one long decode's growth, not
+# two, so shard 0's queued request starves it until shard 1 drains.
+MIGRATION = dict(shards=2, max_slots=2, n_pages=16, new_tokens=(16, 2, 16))
+
+
+def _cluster(arch, cfg, params, scheme, use_kernel, tenants: bool = False,
+             prompts=None, new_tokens=None, **kw):
+    """A cluster of the serve phase's engines (page_tokens 8, 10 pages a
+    slot) with ``prompts`` submitted (``new_tokens`` each, default 16);
+    with ``tenants``, over the tenants phase's registry, rotating one
+    tenant every tick."""
+    from repro_torch.serve.cluster import ClusterEngine
+    registry = _tenant_registry("cuda") if tenants else None
+    kw = {**SHARDS, **kw}
+    cl = ClusterEngine(arch, cfg, params, scheme=scheme,
+                       use_kernel=use_kernel,
+                       page_tokens=SERVE["page_tokens"],
+                       pages_per_slot=PAGES_PER_SLOT, registry=registry,
+                       rotate_every=1 if tenants else 0, **kw)
+    sessions = ([registry.open_session(f"tenant-{t}")
+                 for t in range(N_TENANTS)] if tenants else [None])
+    new_tokens = new_tokens or [SERVE["new_tokens"]] * len(prompts)
+    rids = [cl.submit(prompt=p, max_new_tokens=n,
+                      session=sessions[i % len(sessions)])
+            for i, (p, n) in enumerate(zip(prompts, new_tokens))]
+    return cl, rids
+
+
+def _cluster_once(arch, cfg, params, prompts, scheme, use_kernel,
+                  tenants: bool = False, **kw):
+    """One cluster run, its launches counted from 0 (the main path)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cl, rids = _cluster(arch, cfg, params, scheme, use_kernel, tenants,
+                        prompts=prompts, **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = cl.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    tokens = [done[r].generated for r in rids]
+    return cl, tokens, {
+        "wall_s": wall, "ticks": cl.tick, "launches": launches,
+        "deferred_root_ok": cl.deferred_check(), "stats": dict(cl.stats),
+        "engine_stats": cl.engine_stats,
+        "per_shard": {k: [e.stats[k] for e in cl.engines]
+                      for k in ("admitted", "decode_steps", "reseals",
+                                "rotations")},
+        "tok_per_s": sum(len(t) for t in tokens) / wall}
+
+
+def _pools(cl) -> list:
+    """Both shards' pools (cts, page MACs, VNs, pool MAC) on the host."""
+    return [[t.cpu() for t in (*e.pool.cts, e.pool.page_macs,
+                               e.pool.page_vns, e.pool.pool_mac)]
+            for e in cl.engines]
+
+
+def _same_pools(a: list, b: list) -> bool:
+    import torch
+    return all(torch.equal(x, y) for sa, sb in zip(a, b)
+               for x, y in zip(sa, sb))
+
+
+def _shards_in_turns(arch, cfg, params, prompts) -> tuple:
+    """seda with kernels, seda plain and ``off`` in turns (A B C C B A):
+    identical tokens; both shards' pools byte-equal with the kernels on
+    and off; B1-B3 launched on the first kernel run (the main path)."""
+    import torch
+    order = [("seda_kernel", "seda", True), ("seda_plain", "seda", False),
+             ("off", "off", False)]
+    runs: dict = {key: [] for key, _, _ in order}
+    tokens: dict = {}
+    pools: dict = {}
+    for key, scheme, use_kernel in order + order[::-1]:
+        cl, toks, run = _cluster_once(arch, cfg, params, prompts, scheme,
+                                      use_kernel)
+        if tokens.setdefault(key, toks) != toks:
+            raise AssertionError(f"{key}: tokens differ between two runs")
+        if scheme == "seda":
+            got = _pools(cl)
+            if not _same_pools(pools.setdefault(key, got), got):
+                raise AssertionError(f"{key}: pools differ between runs")
+        if not run["deferred_root_ok"]:
+            raise AssertionError(f"{key}: cluster root MAC failed")
+        runs[key].append(run)
+        del cl
+        torch.cuda.empty_cache()
+    if not (tokens["seda_kernel"] == tokens["seda_plain"] == tokens["off"]):
+        raise AssertionError("cluster tokens differ between seda+kernels, "
+                             "seda plain and off")
+    if not _same_pools(pools["seda_kernel"], pools["seda_plain"]):
+        raise AssertionError("shard pools differ with kernels on and off")
+    main = runs["seda_kernel"][0]
+    zero = [k for k in SINGLE_KEY if main["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the cluster "
+                             f"path: {zero}")
+    if min(main["per_shard"]["decode_steps"]) <= 0:
+        raise AssertionError(f"a shard never decoded: {main['per_shard']}")
+    return tokens["seda_kernel"], {
+        "main_path": {k: main[k] for k in ("launches", "stats",
+                                           "engine_stats", "per_shard",
+                                           "ticks")},
+        "wall_s": {k: [r["wall_s"] for r in v] for k, v in runs.items()},
+        "tok_per_s": {k: [r["tok_per_s"] for r in v]
+                      for k, v in runs.items()},
+        "tick_ms": {k: [r["wall_s"] * 1e3 / r["ticks"] for r in v]
+                    for k, v in runs.items()}}
+
+
+def _timed_migrations(cl) -> list:
+    """Wrap ``cl._migrate_slot``: host ms of each migration (the card
+    synced before and after) and the launches it made (the counts' delta,
+    so the run's own counts stay whole)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    out: list = []
+    inner = cl._migrate_slot
+
+    def wrapper(src, slot_idx, dst):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        inner(src, slot_idx, dst)
+        torch.cuda.synchronize()
+        out.append({"from_shard": src, "to_shard": dst, "tick": cl.tick,
+                    "host_ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": {k: v - before.get(k, 0)
+                                 for k, v in LAUNCHES.items()
+                                 if v - before.get(k, 0)}})
+
+    cl._migrate_slot = wrapper
+    return out
+
+
+def _single_tokens(arch, cfg, params, prompts, new_tokens) -> list:
+    """The single engine (one slot a request) on the same requests."""
+    import torch
+
+    from repro_torch.serve.engine import SecureServingEngine
+    eng = SecureServingEngine(arch, cfg, params, scheme="seda",
+                              use_kernel=True, max_slots=len(prompts),
+                              page_tokens=SERVE["page_tokens"],
+                              pages_per_slot=PAGES_PER_SLOT)
+    rids = [eng.submit(prompt=p, max_new_tokens=n)
+            for p, n in zip(prompts, new_tokens)]
+    done = eng.run()
+    tokens = [done[r].generated for r in rids]
+    del eng
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def _shards_f32(arch, cfg, params, prompts) -> dict:
+    """Float32 at full width: the cluster's tokens equal the single
+    engine's on the serve requests; the migration traffic migrates with
+    no preemption and the single engine's tokens, every migration proof
+    verifying; ``shard_kill`` on shard 1 at tick 3 fails over with no
+    session lost and the fault-free tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import merkle_pool as mkp
+    from repro_torch.serve.faults import Fault, FaultPlan
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    n = [SERVE["new_tokens"]] * len(prompts)
+    single = _single_tokens(arch, cfg32, params32, prompts, n)
+    cl, tokens, run = _cluster_once(arch, cfg32, params32, prompts, "seda",
+                                    True)
+    del cl
+    if tokens != single:
+        raise AssertionError(f"float32 cluster tokens differ from the "
+                             f"single engine's: agreement "
+                             f"{_agreement(tokens, single)}")
+    out = {"cluster_equals_single_engine": True, "ticks": run["ticks"]}
+
+    # Migration.
+    reqs = prompts[:3]
+    mig_new = list(MIGRATION["new_tokens"])
+    want = _single_tokens(arch, cfg32, params32, reqs, mig_new)
+    kw = {k: v for k, v in MIGRATION.items() if k != "new_tokens"}
+    cl, rids = _cluster(arch, cfg32, params32, "seda", True, prompts=reqs,
+                        new_tokens=mig_new, **kw)
+    moves = _timed_migrations(cl)
+    done = cl.run()
+    got = [done[r].generated for r in rids]
+    stats = cl.engine_stats
+    if cl.stats["migrations"] < 1 or stats["preemptions"] or \
+            stats["admitted"] != len(reqs):
+        raise AssertionError(f"migration run: {dict(cl.stats)}, "
+                             f"preemptions {stats['preemptions']}, "
+                             f"admitted {stats['admitted']}")
+    if got != want:
+        raise AssertionError(f"float32 migration tokens differ from the "
+                             f"single engine's: {_agreement(got, want)}")
+    for entry in cl.migration_proofs:
+        proof = mkp.proof_from_dict(entry["proof"])
+        if proof.shard != entry["to_shard"] or not mkp.verify_proof(proof):
+            raise AssertionError(f"migration proof {entry['rid']} failed")
+    if len(cl.migration_proofs) != cl.stats["migrations"] or \
+            not cl.deferred_check():
+        raise AssertionError("migration proofs or the root MAC failed")
+    out["migration"] = {"migrations": cl.stats["migrations"],
+                        "preemptions": stats["preemptions"],
+                        "admitted": stats["admitted"],
+                        "proofs_verified": len(cl.migration_proofs),
+                        "each": moves, "tokens_equal_single_engine": True}
+    del cl
+
+    # Failover.
+    cl, rids = _cluster(arch, cfg32, params32, "seda", True,
+                        prompts=prompts, fault_tolerance=True)
+    plan = FaultPlan([Fault(tick=3, kind="shard_kill", shard=1)])
+    plan.attach_cluster(cl)
+    failovers: list = []
+    inner = cl._failover
+
+    def timed_failover(shard, err=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(shard, err)
+        torch.cuda.synchronize()
+        failovers.append({"shard": shard, "tick": cl.tick,
+                          "host_ms": (time.perf_counter() - t0) * 1e3})
+
+    cl._failover = timed_failover
+    done = cl.run()
+    got = [done[r].generated for r in rids if r in done]
+    stats = cl.engine_stats
+    if cl.stats["shard_failovers"] != 1 or stats["sessions_lost"] or \
+            cl.failed_shards != {1} or cl.sharded._active != [0]:
+        raise AssertionError(f"failover: {dict(cl.stats)}, lost "
+                             f"{stats['sessions_lost']}, failed "
+                             f"{cl.failed_shards}, active "
+                             f"{cl.sharded._active}")
+    if got != tokens:
+        raise AssertionError(f"float32 failover tokens differ from the "
+                             f"fault-free run's: {_agreement(got, tokens)}")
+    if not cl.deferred_check():
+        raise AssertionError("root MAC failed after the failover")
+    out["failover"] = {"shard_failovers": cl.stats["shard_failovers"],
+                       "rerouted": cl.stats["rerouted_preemptions"],
+                       "sessions_recovered": stats["sessions_recovered"],
+                       "sessions_lost": stats["sessions_lost"],
+                       "each": failovers, "tokens_equal_fault_free": True}
+    del cl, params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shards_tenants(arch, cfg, params, prompts) -> dict:
+    """The tenants phase's 4 tenants, a rotation every tick, across the
+    2 shards: kernels and plain (in turns) give equal tokens, B4-B6
+    launch, reseals fire on both shards."""
+    import torch
+    order = [("kernel", True), ("plain", False)]
+    runs: dict = {key: [] for key, _ in order}
+    tokens: dict = {}
+    for key, use_kernel in order + order[::-1]:
+        cl, toks, run = _cluster_once(arch, cfg, params, prompts, "seda",
+                                      use_kernel, tenants=True)
+        if tokens.setdefault(key, toks) != toks:
+            raise AssertionError(f"{key}: tokens differ between two runs")
+        if not run["deferred_root_ok"]:
+            raise AssertionError(f"{key}: cluster root MAC failed")
+        runs[key].append(run)
+        del cl
+        torch.cuda.empty_cache()
+    if tokens["kernel"] != tokens["plain"]:
+        raise AssertionError("tenant cluster tokens differ with kernels on "
+                             "and off")
+    main = runs["kernel"][0]
+    zero = [k for k in MIXED_KEY if main["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"mixed-key kernels never launched: {zero}")
+    if min(main["per_shard"]["reseals"]) <= 0:
+        raise AssertionError(f"reseals per shard {main['per_shard']}")
+    return {"main_path": {k: main[k] for k in ("launches", "stats",
+                                               "per_shard", "ticks")},
+            "wall_s": {k: [r["wall_s"] for r in v]
+                       for k, v in runs.items()}}
+
+
+def _shards_tamper(arch, cfg, params, prompts) -> dict:
+    """Shard 0's page (ct, MAC, VN) copied verbatim into shard 1's pool
+    fails the next ``step()``; a pool swapped into shard 0 around the
+    listeners, its XOR identity patched, fails ``deferred_check()``, and
+    still does after one more tick."""
+    import torch
+
+    from repro_torch.serve.engine import IntegrityError
+    out = {}
+    cl, _ = _cluster(arch, cfg, params, "seda", True, prompts=prompts[:2],
+                     max_slots=1)
+    cl.step()
+    e0, e1 = cl.engines
+    p0, p1 = e0.slots[0].pages[0], e1.slots[0].pages[0]
+    for c0, c1 in zip(e0.pool.cts, e1.pool.cts):
+        c1[p1] = c0[p0]
+    e1.pool.page_macs[p1] = e0.pool.page_macs[p0]
+    e1.pool.page_vns[p1] = e0.pool.page_vns[p0]
+    try:
+        cl.step()
+    except IntegrityError as e:
+        out["cross_shard_replay"] = {"raised": type(e).__name__,
+                                     "message": str(e)}
+    else:
+        raise AssertionError("a page replayed across shards was accepted")
+    del cl
+    cl, _ = _cluster(arch, cfg, params, "seda", True, prompts=prompts[:4])
+    cl.step()
+    verdicts = [cl.deferred_check()]
+    eng = cl.engines[0]
+    victim = eng.free_pages[0]
+    macs = eng.pool.page_macs.clone()
+    macs[victim] ^= 0x5A
+    pool_mac = eng.pool.pool_mac ^ 0x5A
+    eng._pool = eng.pool._replace(page_macs=macs, pool_mac=pool_mac)
+    verdicts.append(cl.deferred_check())
+    cl.step()
+    verdicts.append(cl.deferred_check())
+    if verdicts != [True, False, False] or \
+            cl.sharded.failing_shards() != [0]:
+        raise AssertionError(f"listener-bypassing swap: verdicts "
+                             f"{verdicts}, failing "
+                             f"{cl.sharded.failing_shards()}")
+    out["listener_bypassing_swap"] = {"verdicts": verdicts,
+                                      "failing_shards": [0]}
+    del cl
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_cluster(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
+    """Device busy time, idle share and launches per cluster tick over
+    ``n_ticks`` steady ticks (all 8 requests running, 4 a shard), from a
+    CUPTI trace, as the profile phase takes the single engine's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cl, _ = _cluster(arch, cfg, params, "seda", True, prompts=prompts)
+    for _ in range(2):                     # admission + one warm tick
+        cl.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        cl.step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n_ticks
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            cl.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_ticks
+    del cl
+    torch.cuda.empty_cache()
+    return {"tick_ms": plain_wall * 1e3,
+            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}
+
+
+def phase_shards(arch, cfg, results: dict) -> dict:
+    """Sharded serving at full width: 2 logical shards on the card."""
+    params, prompts = results["params"], results["prompts"]
+    tokens, out = _shards_in_turns(arch, cfg, params, prompts)
+    out["agree_bf16_single_engine"] = _agreement(tokens,
+                                                 results["serve_tokens"])
+    out["f32"] = _shards_f32(arch, cfg, params, prompts)
+    out["tenants"] = _shards_tenants(arch, cfg, params, prompts)
+    out["tamper"] = _shards_tamper(arch, cfg, params, prompts)
+    out["profile"] = {"cluster_seda_kernel": _profile_cluster(
+        arch, cfg, params, prompts),
+        "single_engine_seda_kernel": results.get("profile_seda")}
+    return {"config": {**SHARDS, "page_tokens": SERVE["page_tokens"],
+                       "pages_per_slot": PAGES_PER_SLOT,
+                       "migration": MIGRATION}, **out}
+
+
+def _launch_with_files(launch, argv: list) -> tuple:
+    """``launch.main(argv + file options)``; returns the run's result
+    and its proof bundle, trace, metrics snapshot, Prometheus text and
+    audit log, each read back from its file."""
     import shutil
     import tempfile
+
+    from repro_torch.obs.audit import AuditLog
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="launch_smoke_", dir=ROOT / "build")
+    files = {name: str(Path(tmp, name)) for name in (
+        "proofs.json", "trace.json", "metrics.json", "metrics.prom",
+        "audit.jsonl")}
+    try:
+        out = launch.main(argv + [
+            "--audit-proof-out", files["proofs.json"],
+            "--trace-out", files["trace.json"],
+            "--metrics-json", files["metrics.json"],
+            "--metrics-prom", files["metrics.prom"],
+            "--audit-out", files["audit.jsonl"]])
+        return (out, json.loads(Path(files["proofs.json"]).read_text()),
+                json.loads(Path(files["trace.json"]).read_text()),
+                json.loads(Path(files["metrics.json"]).read_text()),
+                Path(files["metrics.prom"]).read_text(),
+                AuditLog.load(files["audit.jsonl"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _launch_summary(argv, out, bundle, trace, prom, log) -> dict:
+    return {"argv": argv, "tokens_shape": tuple(out["tokens"].shape),
+            "tok_per_s": out["tok_per_s"], "stats": out["stats"],
+            "latency": out["latency"],
+            "obs_files": {"trace_events": len(trace["traceEvents"]),
+                          "audit_records": len(log),
+                          "audit_events": sorted({r["event"]
+                                                  for r in log.records()}),
+                          "prometheus_lines": len(prom.splitlines())},
+            "audit_proofs": {"verified": len(bundle["proofs"]),
+                             "tick": bundle["tick"],
+                             "pages": [len(d["pages"])
+                                       for d in bundle["proofs"]]}}
+
+
+def _check_launch_tokens(out) -> None:
+    shape = tuple(out["tokens"].shape)
+    if shape != (SERVE["n_requests"], SERVE["new_tokens"]):
+        raise AssertionError(f"launcher served tokens of shape {shape}")
+    if out["stats"]["fused_mixed_ticks"] <= 0 or not out["deferred_mac_ok"]:
+        raise AssertionError(f"launcher run: {out['stats']}, deferred MAC "
+                             f"{out['deferred_mac_ok']}")
+
+
+def phase_launch(results: dict) -> dict:
+    import gc
 
     import torch
 
@@ -1680,12 +2147,6 @@ def phase_launch(results: dict) -> dict:
     results.pop("params", None)            # free the earlier model
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.obs.audit import AuditLog
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="launch_smoke_", dir=ROOT / "build")
-    files = {name: str(Path(tmp, name)) for name in (
-        "proofs.json", "trace.json", "metrics.json", "metrics.prom",
-        "audit.jsonl")}
     shape_args = ["--arch", "minitron-4b",
                   "--batch", str(SERVE["n_requests"]),
                   "--prompt-len", str(SERVE["prompt_len"]),
@@ -1693,20 +2154,8 @@ def phase_launch(results: dict) -> dict:
     argv = shape_args + [
         "--engine", "paged", "--scheme", "seda",
         "--tenants", str(N_TENANTS), "--rotate-every", "1",
-        "--audit-proof-out", files["proofs.json"], "--fault-tolerance",
-        "--trace-out", files["trace.json"],
-        "--metrics-json", files["metrics.json"],
-        "--metrics-prom", files["metrics.prom"],
-        "--audit-out", files["audit.jsonl"]]
-    try:
-        out = launch.main(argv)
-        bundle = json.loads(Path(files["proofs.json"]).read_text())
-        trace = json.loads(Path(files["trace.json"]).read_text())
-        snap = json.loads(Path(files["metrics.json"]).read_text())
-        prom = Path(files["metrics.prom"]).read_text()
-        log = AuditLog.load(files["audit.jsonl"])
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        "--fault-tolerance"]
+    out, bundle, trace, snap, prom, log = _launch_with_files(launch, argv)
     if snap["counters"] != out["stats"]:
         raise AssertionError("the metrics snapshot's counters differ from "
                              "the run's")
@@ -1719,20 +2168,7 @@ def phase_launch(results: dict) -> dict:
         raise AssertionError(f"trace spans {sorted(phases)}")
     if "# TYPE repro_decode_steps counter" not in prom:
         raise AssertionError("no Prometheus text")
-    # The dense loop and the paged off engine on the same prompts.
-    simple = launch.main(shape_args + ["--engine", "simple"])
-    paged_off = launch.main(shape_args + ["--engine", "paged",
-                                          "--scheme", "off"])
-    if simple["tokens"].tolist() != paged_off["tokens"].tolist():
-        raise AssertionError(
-            f"--engine simple tokens differ from paged off: agreement "
-            f"{_agreement(simple['tokens'].tolist(), paged_off['tokens'].tolist())}")
-    shape = tuple(out["tokens"].shape)
-    if shape != (SERVE["n_requests"], SERVE["new_tokens"]):
-        raise AssertionError(f"launcher served tokens of shape {shape}")
-    if out["stats"]["fused_mixed_ticks"] <= 0 or not out["deferred_mac_ok"]:
-        raise AssertionError(f"launcher run: {out['stats']}, deferred MAC "
-                             f"{out['deferred_mac_ok']}")
+    _check_launch_tokens(out)
     # Each tenant's proof (taken after the first tick) verifies against
     # the root it was issued under; the final root is a digest.
     tenants = sorted(d["tenant"] for d in bundle["proofs"])
@@ -1745,22 +2181,69 @@ def phase_launch(results: dict) -> dict:
                          tenant=d["tenant"])
     if len(bytes.fromhex(bundle["final"]["root"])) != mkp.HASH_BYTES:
         raise AssertionError("the bundle's final root is not a digest")
-    return {"argv": argv, "tokens_shape": shape,
-            "tok_per_s": out["tok_per_s"], "stats": out["stats"],
-            "latency": out["latency"],
-            "obs_files": {"trace_events": len(trace["traceEvents"]),
-                          "audit_records": len(log),
-                          "audit_events": sorted({r["event"]
-                                                  for r in log.records()}),
-                          "prometheus_lines": len(prom.splitlines())},
+    single = _launch_summary(argv, out, bundle, trace, prom, log)
+    single["audit_proofs"]["final_root"] = bundle["final"]["root"]
+
+    # The same run through the cluster: 2 logical shards on the card.
+    argv = argv + ["--shards", "2"]
+    out, bundle, trace, snap, prom, log = _launch_with_files(launch, argv)
+    # The cluster's snapshot: its own counters, each shard's, the sum.
+    merged = dict(snap["rollup"], **snap["counters"])
+    if merged != out["stats"] or [s["labels"] for s in snap["shards"]] != \
+            [{"shard": "0"}, {"shard": "1"}]:
+        raise AssertionError("the cluster's metrics snapshot differs from "
+                             "the run's")
+    # One chained log: the shards' events (counted by the shards) and the
+    # cluster's own (shard -1).
+    cluster_events = sum(1 for r in log.records() if r["shard"] == -1)
+    if not (log.verify_chain() and len(log) ==
+            out["stats"]["audit_events"] + cluster_events > 0):
+        raise AssertionError(f"cluster audit log: {len(log)} records, "
+                             f"chain {log.verify_chain()}")
+    # The cluster drives each shard's phases itself, so its tick span is
+    # cluster_tick (the shards' own step, and its tick span, never run).
+    phases = {e["name"] for e in trace["traceEvents"]}
+    if not {"cluster_tick", "tick_begin", "decode_dispatch",
+            "decode_collect", "tick_end"} <= phases:
+        raise AssertionError(f"cluster trace spans {sorted(phases)}")
+    if 'repro_decode_steps{shard="1"}' not in prom:
+        raise AssertionError("no per-shard Prometheus text")
+    _check_launch_tokens(out)
+    # Each tenant's proofs (taken after the first tick, one per shard
+    # holding its frames) verify against the shard roots they were
+    # issued under, chained to the cluster root; the final cluster root
+    # compresses the final shard roots.
+    tenants = sorted({d["tenant"] for d in bundle["proofs"]})
+    if tenants != list(range(N_TENANTS)):
+        raise AssertionError(f"cluster proof bundle covers tenants "
+                             f"{tenants}")
+    for d in bundle["proofs"]:
+        if not d["pages"] or d["cluster"] is None:
+            raise AssertionError(f"tenant {d['tenant']}'s proof is empty "
+                                 "or not chained to the cluster root")
+        mkp.verify_proof(mkp.proof_from_dict(d), expected_root=d["root"],
+                         tenant=d["tenant"])
+    final = bundle["final"]
+    pairs = [(s, bytes.fromhex(r)) for s, r in final["shard_roots"]]
+    if [s for s, _ in pairs] != [0, 1] or \
+            mkp.compress_roots(pairs).hex() != final["cluster_root"]:
+        raise AssertionError("the bundle's final cluster root does not "
+                             "compress its shard roots")
+    cluster = _launch_summary(argv, out, bundle, trace, prom, log)
+    cluster["audit_proofs"]["final_cluster_root"] = final["cluster_root"]
+
+    # The dense loop and the paged off engine on the same prompts.
+    simple = launch.main(shape_args + ["--engine", "simple"])
+    paged_off = launch.main(shape_args + ["--engine", "paged",
+                                          "--scheme", "off"])
+    if simple["tokens"].tolist() != paged_off["tokens"].tolist():
+        raise AssertionError(
+            f"--engine simple tokens differ from paged off: agreement "
+            f"{_agreement(simple['tokens'].tolist(), paged_off['tokens'].tolist())}")
+    return {**single, "cluster": cluster,
             "simple": {"tok_per_s": simple["tok_per_s"],
                        "tokens_equal_paged_off": True,
-                       "first_request_tokens": simple["tokens"][0].tolist()},
-            "audit_proofs": {"verified": len(bundle["proofs"]),
-                             "tick": bundle["tick"],
-                             "pages": [len(d["pages"])
-                                       for d in bundle["proofs"]],
-                             "final_root": bundle["final"]["root"]}}
+                       "first_request_tokens": simple["tokens"][0].tolist()}}
 
 
 KERNEL_META = {
@@ -1815,6 +2298,7 @@ def main() -> int:
         ("faults", lambda: phase_faults(arch, cfg, results)),
         ("weights", lambda: phase_weights(results)),
         ("checkpoint", lambda: phase_checkpoint(arch, cfg, results)),
+        ("shards", lambda: phase_shards(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),
     ]
     for name, fn in phases:

@@ -24,14 +24,28 @@ ticks (round-robin)::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --engine paged --tenants 2 --rotate-every 2
 
+``--shards N`` (``--engine paged`` only) serves through the cluster
+engine instead: N shard engines, each with its own pool bound to its
+shard id, logical shards on the one device; ``--batch`` and
+``--n-pages`` are split evenly across the shards.  Requests route to the
+least loaded shard (tenant affinity breaks ties), a starved shard's
+youngest slot migrates securely to one with room, and the summary
+reports the migrations and the deferred cluster root MAC::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --engine paged --scheme seda --shards 2 --tenants 2 \\
+        --rotate-every 4
+
 ``--fault-tolerance`` contains integrity faults instead of aborting
-(quarantine, secure-recompute recovery).  The observability flags
+(quarantine, secure-recompute recovery; with ``--shards``, shard
+failover too).  The observability flags
 (``--engine paged`` only): ``--trace-out`` (Chrome trace of the tick
 phases), ``--metrics-json`` / ``--metrics-prom`` (a metrics snapshot,
 Prometheus text), ``--audit-out`` (the hash-chained audit log as JSON
 lines), ``--slo-ttft-ms`` / ``--slo-p99-ticks`` (SLO targets; a hard
-breach exits with code 3) and ``--http-port`` (``/healthz`` and
-``/metrics`` on 127.0.0.1 during the run).  ``--quiet`` keeps warnings
+breach exits with code 3; one monitor per shard) and ``--http-port``
+(``/healthz``, the worst shard's health, and ``/metrics`` on 127.0.0.1
+during the run).  ``--quiet`` keeps warnings
 only, ``--json-logs`` writes one JSON record a line.
 
 ``--ckpt-dir D`` serves the newest checkpoint published in ``D``
@@ -39,16 +53,19 @@ only, ``--json-logs`` writes one JSON record a line.
 the ``--seed`` session keys; without one it serves the fresh init.
 ``--audit-proof-out F`` admits the batch with one tick, takes one Merkle
 membership proof per session (per tenant; one for the whole pool
-single-tenant), verifies each as a tenant would, and after the run
-writes them with the final Merkle root to ``F`` as JSON.
+single-tenant; with ``--shards``, one per shard holding the session,
+each chained to the cluster root), verifies each as a tenant would, and
+after the run writes them with the final Merkle root (with ``--shards``,
+the final cluster root and shard roots) to ``F`` as JSON.
 
 Runs on the card unless ``--device cpu``.  Unlike the reference
 launcher, the paged engine is built with ``use_kernel=True``: on the
 card the ``seda`` crossings run the CUDA kernels (on the CPU, their
 plain versions).  Fresh weights are random, from a ``torch.Generator``
 seeded with ``--seed`` (not the reference's JAX draw).  Not accepted
-yet, because their modules are not ported: ``--shards`` and
-``--profile-json``.
+yet, because its module is not ported: ``--profile-json``.  The
+reference's ``XLA_FLAGS`` device forcing for ``--shards`` has no torch
+counterpart: the shards share the one device.
 """
 
 from __future__ import annotations
@@ -130,10 +147,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--rotate-every", type=int, default=0,
                     help="rotate one tenant's keys every K ticks "
                          "(round-robin; needs --tenants)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve through an N-shard cluster engine, the "
+                         "batch and the pool split across the shards "
+                         "(--engine paged only; 0 = one engine)")
     ap.add_argument("--fault-tolerance", action="store_true",
                     help="contain integrity faults instead of aborting: "
                          "quarantine failing pages, recover sessions by "
-                         "secure recompute (--engine paged only)")
+                         "secure recompute, fail over a compromised shard "
+                         "(--engine paged only)")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress informational output")
     ap.add_argument("--json-logs", action="store_true",
@@ -177,6 +199,8 @@ def main(argv=None) -> dict:
     _setup_logging(args)
     if args.tenants and args.engine != "paged":
         raise SystemExit("--tenants needs --engine paged")
+    if args.shards and args.engine != "paged":
+        raise SystemExit("--shards needs --engine paged")
     if args.rotate_every and not args.tenants:
         raise SystemExit("--rotate-every needs --tenants (there are no "
                          "tenant keys to rotate otherwise)")
@@ -239,7 +263,8 @@ def _serve_simple(arch, cfg, params, args, device) -> dict:
 
 
 def _serve_paged(arch, cfg, params, args, device) -> dict:
-    """Continuous-batching path: paged, MAC-protected KV pool."""
+    """Continuous-batching path: paged, MAC-protected KV pool, served by
+    one engine or, with ``--shards``, by a cluster of shard engines."""
     from repro_torch.serve.engine import SecureServingEngine
 
     pages_per_slot = args.pages_per_slot or -(
@@ -254,37 +279,48 @@ def _serve_paged(arch, cfg, params, args, device) -> dict:
         for t in range(args.tenants):
             registry.register(f"tenant-{t}")
             sessions.append(registry.open_session(f"tenant-{t}"))
-    eng = SecureServingEngine(
-        arch, cfg, params, scheme=args.scheme, max_slots=args.batch,
-        page_tokens=args.page_tokens, pages_per_slot=pages_per_slot,
-        n_pages=n_pages, keys=SecureKeys.derive(args.seed, device=device),
-        use_kernel=True, registry=registry, rotate_every=args.rotate_every,
+    common = dict(
+        scheme=args.scheme, page_tokens=args.page_tokens,
+        pages_per_slot=pages_per_slot,
+        keys=SecureKeys.derive(args.seed, device=device), use_kernel=True,
+        registry=registry, rotate_every=args.rotate_every,
         fault_tolerance=True if args.fault_tolerance else None,
         trace=bool(args.trace_out), audit=bool(args.audit_out),
         device=device)
+    if args.shards:
+        from repro_torch.serve.cluster import ClusterEngine
+        eng = ClusterEngine(arch, cfg, params, shards=args.shards,
+                            max_slots=-(-args.batch // args.shards),
+                            n_pages=-(-n_pages // args.shards), **common)
+    else:
+        eng = SecureServingEngine(arch, cfg, params, max_slots=args.batch,
+                                  n_pages=n_pages, **common)
 
-    # The SLO watchdog attaches only with a target or the endpoint, so
-    # the tick stays untouched otherwise.
-    monitor = None
+    # SLO watchdogs, one per shard engine, attach only with a target or
+    # the endpoint, so the tick stays untouched otherwise.
+    monitors = []
     if args.slo_ttft_ms or args.slo_p99_ticks or args.http_port:
         from repro_torch.obs.slo import SLOMonitor
-        monitor = SLOMonitor(ttft_ms=args.slo_ttft_ms or None,
-                             p99_tick_ms=args.slo_p99_ticks or None,
-                             min_stall_s=1.0).attach(eng)
+        for shard_eng in (eng.engines if args.shards else [eng]):
+            monitors.append(SLOMonitor(
+                ttft_ms=args.slo_ttft_ms or None,
+                p99_tick_ms=args.slo_p99_ticks or None,
+                min_stall_s=1.0).attach(shard_eng))
     server = None
     if args.http_port:
-        server = _start_http(args.http_port, monitor, eng)
+        server = _start_http(args.http_port, monitors, eng)
         _log("http", f"[serve] /healthz + /metrics on "
              f"127.0.0.1:{args.http_port}", port=args.http_port)
     try:
-        return _drive_paged(eng, cfg, args, device, sessions, monitor)
+        return _drive_paged(eng, cfg, args, device, sessions, monitors)
     finally:
         if server is not None:
             server.shutdown()
             server.server_close()
 
 
-def _drive_paged(eng, cfg, args, device, sessions, monitor) -> dict:
+def _drive_paged(eng, cfg, args, device, sessions, monitors) -> dict:
+    is_cluster = bool(args.shards)
     rng = np.random.default_rng(args.seed)
     rids = []
     for i in range(args.batch):
@@ -298,12 +334,12 @@ def _drive_paged(eng, cfg, args, device, sessions, monitor) -> dict:
         # proves membership against the live root, checked here exactly
         # as a tenant would, keyless.
         eng.step()
-        proofs = _capture_audit_proofs(eng, sessions)
+        proofs = _capture_audit_proofs(eng, sessions, is_cluster)
         _log("audit-proof", f"[serve] {proofs['verified']} session proofs "
              f"captured + verified at tick {proofs['tick']}",
              tick=proofs["tick"], proofs=proofs["verified"])
     t0 = time.perf_counter()
-    done, sig = _run_graceful(eng)
+    done, sig = _run_graceful(eng, is_cluster=is_cluster)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -316,14 +352,18 @@ def _drive_paged(eng, cfg, args, device, sessions, monitor) -> dict:
              requests=args.batch)
     n_tokens = sum(len(eng.requests[r].generated) for r in rids)
     rate = n_tokens / max(dt, 1e-9)
-    stats = dict(eng.stats)
+    stats = (dict(eng.engine_stats, **eng.stats) if is_cluster
+             else dict(eng.stats))
     mode = f"paged/{args.scheme}" + (
-        f"/{args.tenants} tenants" if args.tenants else "")
+        f"/{args.tenants} tenants" if args.tenants else "") + (
+        f"/{args.shards} shards" if is_cluster else "")
+    extra = f", {stats['migrations']} migrations" if is_cluster else ""
     mac_ok = eng.deferred_check()
     _log("summary", f"[serve] {mode}: {n_tokens} tokens over {args.batch} "
          f"requests ({rate:.1f} tok/s on {device}), "
          f"{stats['preemptions']} preemptions, {stats['rotations']} key "
-         f"rotations, deferred pool MAC {'OK' if mac_ok else 'FAIL'}",
+         f"rotations{extra}, deferred {'root' if is_cluster else 'pool'} "
+         f"MAC {'OK' if mac_ok else 'FAIL'}",
          mode=mode, tokens=n_tokens, requests=args.batch, tok_per_s=rate,
          ticks=eng.tick, stats=stats, deferred_mac_ok=bool(mac_ok))
     if done.latency:
@@ -332,8 +372,8 @@ def _drive_paged(eng, cfg, args, device, sessions, monitor) -> dict:
              f"p95={done.latency['p95_ttft_ticks']:.1f} "
              f"p99={done.latency['p99_ttft_ticks']:.1f}", **done.latency)
     # The last stall poll comes now: idle time after the run is no stall.
-    if monitor is not None:
-        monitor.check_stalled()
+    for m in monitors:
+        m.check_stalled()
     _dump_obs(eng, args)
     if sig is None and all(eng.requests[r].state == "finished"
                            for r in rids):
@@ -345,25 +385,34 @@ def _drive_paged(eng, cfg, args, device, sessions, monitor) -> dict:
     out = {"tokens": toks, "tok_per_s": rate, "stats": stats,
            "latency": done.latency, "deferred_mac_ok": bool(mac_ok)}
     if args.audit_proof_out:
-        proofs["final"] = {"root": eng.merkle.root_hex()}
+        if is_cluster:
+            from repro_torch.serve import merkle_pool as mkp
+            pairs = eng.sharded.merkle_roots()
+            proofs["final"] = {
+                "cluster_root": mkp.compress_roots(pairs).hex(),
+                "shard_roots": [[s, r.hex()] for s, r in pairs]}
+        else:
+            proofs["final"] = {"root": eng.merkle.root_hex()}
         with open(args.audit_proof_out, "w") as f:
             json.dump(proofs, f, indent=1)
         _log("audit-proof", f"[serve] audit-proof bundle "
              f"({len(proofs['proofs'])} proofs) -> {args.audit_proof_out}",
              path=args.audit_proof_out, proofs=len(proofs["proofs"]))
         out["audit_proofs"] = proofs
-    if monitor is not None:
-        health = monitor.health()
+    if monitors:
+        from repro_torch.obs.slo import merge_health
+        health = merge_health([m.health() for m in monitors])
         _log("slo", f"[serve] SLO health: {health['status']}", health=health)
-        if monitor.hard_breach:
+        if any(m.hard_breach for m in monitors):
             _log("slo", "[serve] hard SLO breach (integrity alarm, stuck "
                  "tick or a session lost) — exiting non-zero")
             raise SystemExit(3)
     return out
 
 
-def _run_graceful(eng):
-    """Drive the engine tick by tick so SIGINT/SIGTERM drain cleanly.
+def _run_graceful(eng, *, is_cluster: bool):
+    """Drive the engine (or cluster) tick by tick so SIGINT/SIGTERM drain
+    cleanly.
 
     A signal only sets a flag: the tick in flight finishes (no torn
     pool state, the audit chain stays whole) and the loop stops before
@@ -381,10 +430,16 @@ def _run_graceful(eng):
                                     got.append(signum))
         except ValueError:  # not the main thread
             pass
+
+    def busy() -> bool:
+        if is_cluster:
+            return eng._busy()
+        return bool(eng._n_waiting()
+                    or any(s is not None for s in eng.slots))
+
     try:
         for _ in range(100_000):
-            if got or not (eng._n_waiting()
-                           or any(s is not None for s in eng.slots)):
+            if got or not busy():
                 break
             eng.step()
         else:
@@ -402,20 +457,25 @@ def _run_graceful(eng):
             signal.signal(s, h)
 
 
-def _start_http(port: int, monitor, eng):
+def _start_http(port: int, monitors: list, eng):
     """Stdlib ``/healthz`` + ``/metrics`` on 127.0.0.1, in a daemon
-    thread.  ``/healthz`` answers 503 once the engine is failing
-    (integrity alarm, stuck tick or a lost session), so a probe can pull
-    the instance; ``/metrics`` is the engine's Prometheus text."""
+    thread.  ``/healthz`` is the merged health of the monitors (the
+    worst shard wins) and answers 503 once one is failing (integrity
+    alarm, stuck tick or a lost session), so a probe can pull the
+    instance; ``/metrics`` is the engine's Prometheus text (a cluster's
+    carries every shard's, labeled ``shard=``)."""
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from repro_torch.obs.slo import merge_health
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 - http.server API
             route = self.path.split("?")[0]
             if route == "/healthz":
-                monitor.check_stalled()
-                doc = monitor.health()
+                for m in monitors:
+                    m.check_stalled()
+                doc = merge_health([m.health() for m in monitors])
                 code = 503 if doc["status"] == "failing" else 200
                 body = json.dumps(doc, indent=2, sort_keys=True).encode()
                 ctype = "application/json"
@@ -438,11 +498,16 @@ def _start_http(port: int, monitor, eng):
     return server
 
 
-def _capture_audit_proofs(eng, sessions) -> dict:
-    """One audit proof per session (the whole pool single-tenant), each
-    verified in place; raises on the first that fails."""
+def _capture_audit_proofs(eng, sessions, is_cluster: bool) -> dict:
+    """One audit proof per session (the whole pool single-tenant; a
+    cluster gives one per shard holding the session, each chained to
+    the cluster root), each verified in place; raises on the first that
+    fails."""
     from repro_torch.serve import merkle_pool as mkp
-    proofs = [eng.audit_proof(session) for session in (sessions or [None])]
+    proofs = []
+    for session in (sessions or [None]):
+        got = eng.audit_proof(session)
+        proofs.extend(got if is_cluster else [got])
     for p in proofs:
         mkp.verify_proof(p, expected_root=p.root, tenant=p.tenant)
     return {"tick": eng.tick, "verified": len(proofs),

@@ -72,8 +72,18 @@ their MAC rows scrubbed and the pool MAC rebuilt, all in place), and
 only the affected sessions are preempted for secure recompute: their
 re-admission prefills prompt + tokens so far, so the recovered stream
 is the fault-free one.  A retry budget with exponential backoff bounds
-the recoveries of one session (``sessions_lost``).  Sharding is not
-ported yet.
+the recoveries of one session (``sessions_lost``).
+
+**Sharded mode.**  Built with ``shard_id`` / ``n_shards``, the engine
+is one shard of a :class:`repro_torch.serve.cluster.ClusterEngine`: its
+pool's RePA bindings and CTR counters carry the shard id, so a page
+replayed into another shard fails its gate; its tick is split into
+begin / dispatch / collect / end so the cluster dispatches every shard
+before it collects any; ``preempt_hook(request)`` returning True hands a
+preempted request to the cluster instead of the local queue; and its
+pool updates, each with its pool-MAC delta, reach the cluster's
+root-MAC mirrors through the pool listeners.  With ``n_shards > 1`` its
+snapshot and Prometheus text carry a ``shard`` label.
 """
 
 from __future__ import annotations
@@ -299,7 +309,9 @@ class SecureServingEngine(SubmitAPI):
                  prefix_cache: bool = False,
                  prefix_cache_pages: Optional[int] = None,
                  fault_tolerance=None, merkle: bool = True,
-                 trace=None, audit=None, device=None):
+                 trace=None, audit=None, device=None,
+                 shard_id: int = 0, n_shards: int = 1,
+                 preempt_hook=None):
         if arch.kind != "lm":
             raise ValueError("the paged serving engine supports decoder-only "
                              "LMs")
@@ -328,6 +340,11 @@ class SecureServingEngine(SubmitAPI):
         self.defer_interval = defer_interval
         self.eos_id = eos_id
         self.verify_every_step = verify_every_step
+        self.n_shards = n_shards
+        # preempt_hook(request) returning True means the cluster took the
+        # preempted request (it may re-route it to another shard), so it
+        # must not be requeued here.
+        self._preempt_hook = preempt_hook
         # fault_tolerance=None keeps the strict discipline (an
         # IntegrityError escapes step()/run()); True or a RecoveryPolicy
         # turns on quarantine + secure-recompute recovery.
@@ -353,7 +370,7 @@ class SecureServingEngine(SubmitAPI):
         self.spec = kvp.build_page_spec(
             self._cache_tree, scheme=scheme, page_tokens=page_tokens,
             n_pages=self.n_pages, max_slots=max_slots, max_len=self.max_len,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, shard=shard_id, n_shards=n_shards)
         self.shard_id = self.spec.shard
         self.page_io = kvp.PageIO(self.spec, self.keys)
         self.prefix_cache = None
@@ -370,7 +387,7 @@ class SecureServingEngine(SubmitAPI):
         self.pool = kvp.init_pool(self.spec, self.device)
         # Crossings write the pool in place: every write is a pool update.
         self.page_io.write_listeners.append(
-            lambda pool: self._notify_pool(pool, pool))
+            lambda pool, delta: self._notify_pool(pool, pool, delta))
         self._ok_accum = torch.ones((), dtype=torch.bool, device=self.device)
         self.waiting: deque = deque()           # single-tenant FIFO
         self._tenant_waiting: dict = {}         # tenant idx -> deque
@@ -419,16 +436,20 @@ class SecureServingEngine(SubmitAPI):
     def pool(self, new_pool: kvp.PagedKVPool) -> None:
         old = getattr(self, "_pool", None)
         self._pool = new_pool
-        self._notify_pool(old, new_pool)
+        self._notify_pool(old, new_pool, None if old is None
+                          else old.pool_mac ^ new_pool.pool_mac)
 
-    def _notify_pool(self, old, new) -> None:
+    def _notify_pool(self, old, new, delta) -> None:
         for listener in self._pool_listeners:
-            listener(old, new)
+            listener(old, new, delta)
 
     def attach_pool_listener(self, listener) -> None:
-        """``listener(old_pool, new_pool)`` runs on every pool update: a
-        new pool assigned, or a crossing's in-place write (then ``old``
-        is ``new``), or a repair after a fault (then ``old`` is None)."""
+        """``listener(old_pool, new_pool, delta)`` runs on every pool
+        update: a new pool assigned, or a crossing's in-place write (then
+        ``old`` is ``new``), with ``delta`` the change of the pool MAC
+        (``old.pool_mac ^ new.pool_mac``, or the bytes the write XORed
+        in); or a repair after a fault or the first pool (then ``old``
+        and ``delta`` are None: the pool MAC is to be re-adopted)."""
         self._pool_listeners.append(listener)
 
     # -- observability (metrics / tracing / audit) ---------------------------
@@ -562,13 +583,18 @@ class SecureServingEngine(SubmitAPI):
         err.ctx = dict(ctx)
         return err
 
+    def _labels(self) -> Optional[dict]:
+        """The ``shard`` label of a cluster's shard, else none."""
+        return ({"shard": str(self.shard_id)} if self.n_shards > 1
+                else None)
+
     def snapshot(self) -> dict:
         """JSON-able metrics snapshot (gauges sampled now)."""
-        return self.metrics.snapshot()
+        return self.metrics.snapshot(labels=self._labels())
 
     def prometheus(self) -> str:
         """Prometheus text exposition of this engine's metrics."""
-        return self.metrics.prometheus()
+        return self.metrics.prometheus(labels=self._labels())
 
     def export_trace(self, path: Optional[str] = None) -> dict:
         """Chrome trace-event JSON of the recorded phase spans."""
@@ -1328,6 +1354,8 @@ class SecureServingEngine(SubmitAPI):
         slot.req.state = "waiting"
         slot.req.n_evictions += 1
         self.stats["preemptions"] += 1
+        if self._preempt_hook is not None and self._preempt_hook(slot.req):
+            return          # the cluster took it (re-routes across shards)
         if slot.tenant is not None:               # preempted go to the front
             self._tenant_waiting[slot.tenant.index].appendleft(slot.req)
         else:
@@ -1366,7 +1394,7 @@ class SecureServingEngine(SubmitAPI):
         """Announce an in-place repair: every listener re-adopts the
         pool wholesale (``old_pool=None``), since the tamper being
         repaired bypassed them and no delta can be trusted."""
-        self._notify_pool(None, self.pool)
+        self._notify_pool(None, self.pool, None)
 
     def _quarantine_pages(self, pages) -> None:
         """Retire frames for good after a localized fault.

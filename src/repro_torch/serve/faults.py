@@ -32,9 +32,12 @@ Fault kinds
     :attr:`PageIO.fault_hooks` — a transient read glitch that a bounded
     re-read tells apart from persistent tamper.
 ``shard_kill``
-    Raise ``IntegrityError`` out of the target shard's tick (the
-    cluster's availability fault; the port has no cluster yet, so it
-    only raises).
+    Raise ``IntegrityError``, with no page context, out of the target
+    shard's tick: the cluster's availability fault.  Under a
+    fault-tolerant :class:`~repro_torch.serve.cluster.ClusterEngine`
+    (plan attached with :meth:`FaultPlan.attach_cluster`) the shard is
+    failed over and its sessions recompute on the survivors; on a lone
+    engine it escapes.
 
 :class:`RecoveryPolicy` (the engine's ``fault_tolerance`` knob) lives
 here too, so the containment layer and the harness share one module.
@@ -102,7 +105,8 @@ class Fault:
 class FaultPlan:
     """A deterministic, seeded schedule of faults.
 
-    Attach with :meth:`attach`; the plan records what actually fired in
+    Attach with :meth:`attach` (one engine) or :meth:`attach_cluster`
+    (every shard of a cluster); the plan records what actually fired in
     :attr:`fired` for assertions.
     """
 
@@ -147,6 +151,14 @@ class FaultPlan:
 
         engine._tick_begin = tick_begin
         engine.page_io.fault_hooks.append(self._verdict_hook(engine))
+        return self
+
+    def attach_cluster(self, cluster) -> "FaultPlan":
+        """Hook this plan into every shard engine of a cluster; each
+        fault fires on the shard its ``shard`` field names, at that
+        shard's tick."""
+        for engine in cluster.engines:
+            self.attach(engine)
         return self
 
     # -- firing -------------------------------------------------------------

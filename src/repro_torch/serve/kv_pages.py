@@ -22,7 +22,8 @@ schedules batched over pages for a mixed ctx.
 Unlike the reference, whose pool is an immutable value rewritten by
 every write, :meth:`PageIO.write` updates the pool tensors IN PLACE and
 returns the same pool, then calls each of ``PageIO.write_listeners``
-with it (the engine's Merkle level learns of changes this way).
+with it and the write's pool-MAC delta (the engine's Merkle level learns
+of changes this way, and the cluster's root-MAC mirrors fold the delta).
 Scatters with repeated indices only ever repeat the scratch page, so
 which write wins there does not matter.  For the same reason every
 crossing that reads before it writes (:meth:`PageIO.reseal`,
@@ -32,7 +33,7 @@ first and writes nothing when it fails.
 :class:`PrefixCache` is the host-side index of the secure shared-prefix
 cache: pages sealed under a tenant's cache binding (epoch word
 :data:`PREFIX_ROLE`) and found by the chain hash of the tokens they
-hold.  Migration between pools on different devices is not ported yet.
+hold.
 """
 
 from __future__ import annotations
@@ -663,8 +664,10 @@ def _page_ids(spec: PageSpec, ids, device) -> torch.Tensor:
 class PageIO:
     """Pool boundary crossings for one ``(spec, keys)`` pair.
 
-    ``write_listeners`` are called as ``listener(pool)`` after every
-    write into a pool (the pool is updated in place).
+    ``write_listeners`` are called as ``listener(pool, delta)`` after
+    every write into a pool (the pool is updated in place), ``delta``
+    the (MAC_BYTES,) u8 device tensor that write XORed into
+    ``pool.pool_mac``.
 
     ``verdict_hooks`` observe every MAC-gate verdict the caller syncs to
     the host and hands to :meth:`report_verdict`, as
@@ -778,11 +781,11 @@ class PageIO:
         old_macs = pool.page_macs[page_ids]              # read before scatter
         pool.page_macs[page_ids] = agg
         pool.page_vns[page_ids] = u32(vns)
-        delta = torch.where(real_mask[:, None], old_macs ^ agg,
-                            torch.zeros_like(agg))
-        pool.pool_mac.bitwise_xor_(mac.xor_aggregate(delta))
+        delta = mac.xor_aggregate(torch.where(
+            real_mask[:, None], old_macs ^ agg, torch.zeros_like(agg)))
+        pool.pool_mac.bitwise_xor_(delta)
         for listener in self.write_listeners:
-            listener(pool)
+            listener(pool, delta)
         return pool
 
     def write_prefill(self, pool: PagedKVPool, page_ids: torch.Tensor,
@@ -922,11 +925,13 @@ class PageIO:
         """Reseal N pages from ``src_pool`` (laid out by ``src_spec``,
         e.g. another shard's binding) into this IO's ``dst_pool``.
 
-        Both pools must live on one device (migration across devices is
-        not ported).  The pool is written in place, so unlike the
-        reference this syncs on the source verdict first and writes
-        nothing when it fails: a tampered source must not be laundered
-        into freshly MACed pages.  ``src_ids`` / ``dst_ids`` are host
+        Both pools must live on one device.  For pools on different
+        devices, run :meth:`read_raw` on the source device, move the
+        plaintext leaf pages, and :meth:`write` on the destination (what
+        the cluster engine does).  The pool is written in place, so
+        unlike the reference this syncs on the source verdict first and
+        writes nothing when it fails: a tampered source must not be
+        laundered into freshly MACed pages.  ``src_ids`` / ``dst_ids`` are host
         arrays (checked against the pools here) or tensors.  Returns
         ``(dst_pool, ok)``, ``ok`` the host verdict (the one sync).
         """
@@ -935,10 +940,10 @@ class PageIO:
             raise ValueError("migration needs identically-laid-out pools")
         device = dst_pool.page_macs.device
         if src_pool.page_macs.device != device:
-            raise NotImplementedError("migration between devices is not "
-                                      "ported (pools on "
-                                      f"{src_pool.page_macs.device} and "
-                                      f"{device})")
+            raise ValueError("migrate needs both pools on one device "
+                             f"(pools on {src_pool.page_macs.device} and "
+                             f"{device}): read_raw on the source, move the "
+                             "plaintext, write on the destination")
         src_ids = _page_ids(src_spec, src_ids, device)
         dst_ids = _page_ids(dst_spec, dst_ids, device)
         if src_ids.shape != dst_ids.shape:

@@ -392,8 +392,9 @@ class MerklePagePool:
 
     # -- listener side (hot path, O(1)) ----------------------------------
 
-    def on_pool_update(self, old_pool, new_pool) -> None:
-        """Pool-listener entry point (``listener(old, new)`` contract).
+    def on_pool_update(self, old_pool, new_pool, delta=None) -> None:
+        """Pool-listener entry point (``listener(old, new, delta)``
+        contract; the pool-MAC ``delta`` is not needed here).
 
         ``old is None`` is the resync-by-assignment signal fired by
         ``_commit_repair``: the previous pool state cannot be trusted,

@@ -10,7 +10,8 @@ and the same audit event sequence (all fields but ``ts``, ``prev``,
 ``hash`` and ``detail``).  The port's tokens also equal its fault-free
 run.  Mirrors ``TestPlan``, ``TestContainment``, ``TestSLOIntegration``
 and ``TestIntegrityFailContext`` of ``tests/test_chaos.py``; shard
-failover waits for the cluster engine.
+failover (``TestShardFailover``) is held against the reference in
+``tests/test_torch_sharded.py``.
 """
 
 import ast
@@ -40,7 +41,7 @@ from repro_torch.serve.engine import (STAT_NAMES, IntegrityError,
 from repro_torch.serve.faults import (FAULT_KINDS, Fault, FaultPlan,
                                       RecoveryPolicy)
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
-from test_torch_models import numpy_params
+from test_torch_models import numpy_params, port_test_env  # noqa: F401
 from test_torch_obs import KERNEL_ROUTE, audit_events
 
 VERIFYING = [s for s in SCHEMES if SCHEMES[s].verify != "none"]

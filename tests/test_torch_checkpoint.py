@@ -31,6 +31,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.models import lm
 from repro_torch.models.layers import init_params
 from repro_torch.serve import merkle_pool as mkp
+from test_torch_models import port_test_env  # noqa: F401
 
 SEED = 1234
 

@@ -26,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.core import aes, baes, ctr, mac, multilevel, secure_exec, vn
 from repro_torch.core.bytesutil import bytes_to_u32, i64, u32, u32_to_bytes
 from repro_torch.core.secure_memory import SecureKeys
+from test_torch_models import port_test_env  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

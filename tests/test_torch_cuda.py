@@ -9,7 +9,10 @@ copy-on-write, reseal-on-share) gives the CPU's tokens and counters and
 goes through the mixed-key kernels.  A fault-tolerant run that contains
 a bitflip (and, with tenants, a corrupted page MAC) gives the CPU's
 tokens, quarantined frames and containment counters, its probes on the
-single-key or the mixed-key kernels.
+single-key or the mixed-key kernels.  A two-shard cluster on the card
+gives the CPU's tokens and counters, its pools byte-equal with the
+kernels on and off; with one shard on the card and one on the CPU, the
+migration's plaintext hops between the devices.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -590,3 +593,83 @@ def test_containment_on_the_card_equals_cpu(card, tenants):
              if tenants else ("aes_ctr_keystream", "fused_crypt_mac"))
     for name in route:
         assert gpu[5][name] > 0, name
+
+
+def _cluster_run(devices, params, use_kernel: bool):
+    """The smoke cluster (2 seda shards) on the migration scenario: two
+    long decodes on shard 0, a short one on shard 1, then a migration."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.cluster import ClusterEngine
+    arch = get_arch("minitron-4b")
+    cl = ClusterEngine(arch, arch.make_smoke_config(), params, shards=2,
+                       scheme="seda", use_kernel=use_kernel, max_slots=2,
+                       page_tokens=4, pages_per_slot=8, n_pages=8,
+                       devices=devices)
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, 256, n))) for n in (5, 7, 9)]
+    rids = [cl.submit(prompt=p, max_new_tokens=n)
+            for p, n in zip(prompts, (20, 2, 20))]
+    reset_launches()
+    cl.run()
+    return cl, [cl.requests[r].generated for r in rids], dict(LAUNCHES)
+
+
+def _smoke_params():
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    cfg = get_arch("minitron-4b").make_smoke_config()
+    return init_params(lm.lm_specs(cfg), 0, device="cpu")
+
+
+def test_cluster_on_the_card_equals_cpu_and_plain(card):
+    """Two logical shards on the card: the tokens and counters of the
+    CPU's run; both shards' pools byte-equal with the kernels on and
+    off; B1-B3 launched, migration included."""
+    params = _smoke_params()
+    cpu, cpu_tokens, _ = _cluster_run(["cpu", "cpu"], params, True)
+    runs = [_cluster_run([card, card], params, uk) for uk in (True, False)]
+    (kern, tokens, launches), (plain, plain_tokens, plain_launches) = runs
+    assert tokens == plain_tokens == cpu_tokens
+    assert dict(kern.stats) == dict(cpu.stats)
+    assert kern.stats["migrations"] > 0 and kern.deferred_check()
+    for a, b in zip(kern.engines, plain.engines):
+        for x, y in zip(a.pool.cts, b.pool.cts):
+            assert torch.equal(x, y)
+        for name in ("page_macs", "page_vns", "pool_mac"):
+            assert torch.equal(getattr(a.pool, name), getattr(b.pool, name))
+    for name in ("aes_ctr_keystream", "fused_crypt_mac",
+                 "fused_crypt_mac_write"):
+        assert launches[name] > 0 and plain_launches[name] == 0, name
+
+
+def test_cluster_across_card_and_cpu_equals_cpu(card):
+    """Shard 0 on the card, shard 1 on the CPU: the migration's
+    plaintext hops between the two devices, and the tokens, counters and
+    root check are the all-CPU run's."""
+    params = _smoke_params()
+    cpu, cpu_tokens, _ = _cluster_run(["cpu", "cpu"], params, True)
+    mixed, tokens, _ = _cluster_run([card, "cpu"], params, True)
+    assert tokens == cpu_tokens
+    assert dict(mixed.stats) == dict(cpu.stats)
+    assert mixed.stats["migrations"] > 0
+    assert [e.device.type for e in mixed.engines] == ["cuda", "cpu"]
+    assert mixed.deferred_check()
+
+
+def test_migrate_refuses_pools_on_two_devices(card):
+    """``PageIO.migrate`` is the one-device form: a pool on the card and
+    one on the CPU are refused (the cluster moves pages across devices
+    with read_raw, a plaintext hop and write)."""
+    from repro_torch.models.attention import CacheSpec, KVCache
+    from repro_torch.serve import kv_pages as kvp
+    tree = [[KVCache(k=CacheSpec((2, 2, 16, 2, 8), "float32"),
+                     v=CacheSpec((2, 2, 16, 2, 8), "float32"),
+                     length=CacheSpec((2,), "int32"))]]
+    spec = kvp.build_page_spec(tree, scheme="seda", page_tokens=4,
+                               n_pages=6, max_slots=2, max_len=16)
+    keys = SecureKeys.derive(5, device=card)
+    with pytest.raises(ValueError, match="one device"):
+        kvp.migrate_pages(kvp.init_pool(spec, card), spec,
+                          kvp.init_pool(spec, "cpu"), spec, keys, [0], [1],
+                          9)

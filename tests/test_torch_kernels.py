@@ -42,6 +42,7 @@ from repro_torch.kernels.otp_xor import ref as ox_ref
 from repro_torch.kernels.xormac import kernel as xm_kernel
 from repro_torch.kernels.xormac import ops as xm_ops
 from repro_torch.kernels.xormac import ref as xm_ref
+from test_torch_models import port_test_env  # noqa: F401
 
 
 def _u32(a) -> torch.Tensor:

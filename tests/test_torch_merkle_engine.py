@@ -18,6 +18,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import merkle_pool as j_mkp
 from repro_torch.configs import get_arch
@@ -28,6 +29,7 @@ from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve import merkle_pool as mkp
 from repro_torch.serve.engine import SecureServingEngine
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
+from test_torch_models import port_test_env  # noqa: F401
 
 SCHEMES = ["off", "sgx64", "sgx512", "mgx64", "mgx512", "seda", "seda512"]
 
@@ -117,13 +119,17 @@ def test_every_pool_write_reaches_the_listeners(smoke):
     reg, sa, _ = _two_tenants(2)
     eng = _engine(smoke, registry=reg, prefix_cache=True)
     seen = []
-    eng.attach_pool_listener(lambda old, new: seen.append((old, new)))
+    eng.attach_pool_listener(
+        lambda old, new, delta: seen.append((old, new, delta)))
     eng.submit(prompt=[5, 6, 7, 8, 9], max_new_tokens=3, session=sa)
     eng.step()              # prefill write + cache insert copy + decode
-    assert len(seen) == 3 and all(o is n is eng.pool for o, n in seen)
+    assert len(seen) == 3 and all(o is n is eng.pool for o, n, _ in seen)
+    assert all(d is not None for _, _, d in seen)
     pool = eng.pool
     eng.pool = kvp.init_pool(eng.spec, "cpu")     # a new pool assigned
-    assert seen[-1] == (pool, eng.pool)
+    old, new, delta = seen[-1]
+    assert (old, new) == (pool, eng.pool)
+    assert torch.equal(delta, pool.pool_mac ^ eng.pool.pool_mac)
 
 
 # -- proofs and forgeries --------------------------------------------------

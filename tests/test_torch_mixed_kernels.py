@@ -29,6 +29,7 @@ from repro_torch.kernels.fused_crypt_mac import kernel as fused
 from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
 from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
+from test_torch_models import port_test_env  # noqa: F401
 
 NS = [1, 37, 300]
 SS = [1, 4, 11]

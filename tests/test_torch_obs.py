@@ -41,7 +41,7 @@ from repro_torch.obs.slo import SLOMonitor, merge_health
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.serve.engine import STAT_NAMES, SecureServingEngine
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
-from test_torch_models import numpy_params
+from test_torch_models import numpy_params, port_test_env  # noqa: F401
 
 SCHEMES = ["off", "sgx64", "sgx512", "mgx64", "mgx512", "seda", "seda512"]
 # Counters that depend on whether a side runs its kernels (the reference

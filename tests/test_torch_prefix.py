@@ -40,7 +40,7 @@ from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve.engine import (STAT_NAMES, IntegrityError,
                                       SecureServingEngine, SubmitRequest)
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
-from test_torch_models import numpy_params
+from test_torch_models import numpy_params, port_test_env  # noqa: F401
 from test_torch_serving import _assert_same, _pool_state, _t
 
 SCHEMES = ["off", "sgx64", "sgx512", "mgx64", "mgx512", "seda", "seda512"]
@@ -379,7 +379,7 @@ def test_copy_checks_page_ids_and_listeners():
     io = kvp.PageIO(spec, keys)
     pool = kvp.init_pool(spec, "cpu")
     seen = []
-    io.write_listeners.append(seen.append)
+    io.write_listeners.append(lambda pool, delta: seen.append(pool))
     for bad in ([0, spec.scratch_page + 1], [-1, 0]):
         with pytest.raises(IndexError, match="outside the pool"):
             io.copy(pool, [0, 1], bad, 1)

@@ -35,7 +35,7 @@ from repro_torch.models import lm
 from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve.engine import (IntegrityError, SecureServingEngine,
                                       SubmitRequest)
-from test_torch_models import numpy_params
+from test_torch_models import numpy_params, port_test_env  # noqa: F401
 
 SCHEMES = ["off", "sgx64", "sgx512", "mgx64", "mgx512", "seda", "seda512"]
 MAX_SLOTS, PAGE_TOKENS, PAGES_PER_SLOT, N_PAGES = 2, 4, 2, 4

@@ -37,7 +37,7 @@ from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve.engine import IntegrityError, SecureServingEngine
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
 from repro_torch.tenancy import keys as keys_mod
-from test_torch_models import numpy_params
+from test_torch_models import numpy_params, port_test_env  # noqa: F401
 from test_torch_serving import _assert_same, _pool_state, _t
 
 SCHEMES = ["off", "sgx64", "sgx512", "mgx64", "mgx512", "seda", "seda512"]
@@ -478,11 +478,12 @@ def test_launcher_argument_errors():
     with pytest.raises(SystemExit, match="--tenants"):
         launch.main(["--smoke", "--device", "cpu", "--rotate-every", "2"])
     # --ckpt-dir is accepted (tests/test_torch_checkpoint.py serves one);
-    # the simple loop takes no tenants and no paged-engine flags, and
-    # sharding and the device-cost profile are not ported.
+    # the simple loop takes no tenants, shards or paged-engine flags, and
+    # the device-cost profile is not ported.
     for flag in (["--engine", "simple", "--tenants", "2"],
                  ["--engine", "simple", "--fault-tolerance"],
-                 ["--shards", "2"], ["--profile-json", "p.json"]):
+                 ["--engine", "simple", "--shards", "2"],
+                 ["--profile-json", "p.json"]):
         with pytest.raises(SystemExit):
             launch.main(["--smoke", "--device", "cpu", *flag])
     with pytest.raises(ValueError, match="pool"):

@@ -26,6 +26,7 @@ from repro_torch.core import (baes, bytesutil, ctr, layout, mac,
                               secure_exec, vn)
 from repro_torch.core import secure_memory as sm
 from repro_torch.kernels import LAUNCHES, reset_launches
+from test_torch_models import port_test_env  # noqa: F401
 
 SEED = 1234
 
