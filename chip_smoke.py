@@ -116,12 +116,36 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              cluster's snapshot, per shard labels and ``cluster_tick``
              spans.  Then ``--engine simple`` gives the tokens of
              ``--engine paged --scheme off`` on the same prompts.
+15. archs  — the attention-family configs at full width, each after the
+             earlier model is freed: minitron-8b, olmoe-1b-7b (64-expert
+             top-8 MoE) and granite-34b (GELU MLP, MQA) at full depth,
+             deepseek-v3-671b (MLA latent pages, shared expert, untied
+             head) cut to 4 layers (3 dense + 1 MoE), random weights
+             drawn in bf16 on the card at one layer's (one expert's)
+             fan-in, the serve phase's requests and pool.  Per config:
+             seda with and without the kernels and ``off`` once each give
+             identical tokens, the seda pools (cts, page MACs, VNs, pool
+             MAC) are byte-equal with the kernels on and off, B1-B3
+             launch, the deferred MAC holds; tok/s, host ms per tick,
+             peak memory, the weights a tick reads against the card's
+             bytes rate, and a CUPTI trace of 3 steady ticks (device busy,
+             idle share, launches, crypto ms; for MoE each stage's device
+             ms, the dispatch's argsort, gather and scatter among them).
+             deepseek: a flipped byte of a live ``c_kv`` page and of a
+             ``k_pe`` page each raise ``IntegrityError``; its requests
+             over 4 tenants rotating every tick give the single-tenant
+             tokens with B4-B6 launching.  olmoe through the launcher
+             (the deferred MAC OK).  In float32 on the card, each
+             config's smoke config served under seda with the kernels
+             gives the tokens of a plain prefill + decode loop fed as the
+             engine feeds it (prompt padded to its bucket; one slot for
+             MoE, whose rows compete for expert capacity).
 
 Each path whose launches are reported (serve, tenants, prefix, each
 containment of the faults phase, weights, the shards phase's first
-kernel runs) is driven with the counts set to 0 just before it and read
-just after.  Then a
-``{"kernels": [...]}`` line and, last, the device line.
+kernel runs, each archs config's runs) is driven with the counts set to
+0 just before it and read just after.  Then a ``{"kernels": [...]}``
+line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -580,14 +604,27 @@ def _weights_kernels(cfg, dev, err) -> dict:
     return out
 
 
-def _dense_tokens(cfg, params, prompt: list, n_new: int, max_len: int):
-    """Plain prefill + decode loop (no pool, no crypto)."""
+def _dense_tokens(cfg, params, prompt: list, n_new: int, max_len: int,
+                 bucketed: bool = False):
+    """Plain prefill + decode loop (no pool, no crypto).  ``bucketed``
+    feeds the model as the engine does: the prompt right-padded to its
+    power-of-two bucket (the padded length sets an MoE prefill's
+    capacity), decode from the prompt's length."""
     import torch
 
     from repro_torch.models import lm
+    from repro_torch.serve import kv_pages as kvp
+    from repro_torch.serve.engine import _bucket_len
     from repro_torch.serve.serve_step import greedy_sample
-    tokens = torch.tensor([prompt], device="cuda")
-    logits, caches = lm.lm_prefill(cfg, params, {"tokens": tokens}, max_len)
+    lp = len(prompt)
+    pad = _bucket_len(lp, max_len) - lp if bucketed else 0
+    tokens = torch.tensor([prompt + [0] * pad], device="cuda")
+    logits, caches = lm.lm_prefill(cfg, params, {"tokens": tokens}, max_len,
+                                   last_pos=lp - 1)
+    if pad:
+        leaves = [torch.full_like(t, lp) if is_len else t for t, is_len in
+                  zip(kvp.cache_leaves(caches), kvp.length_flags(caches))]
+        caches = kvp.cache_unflatten(caches, leaves)
     tok = greedy_sample(logits)
     out = [int(tok[0, 0])]
     for _ in range(n_new - 1):
@@ -754,10 +791,11 @@ def phase_serve(arch, cfg, results: dict) -> dict:
 
 
 def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
-                   tenants: bool = False, n_ticks: int = 3) -> dict:
+                   tenants: bool = False, n_ticks: int = 3) -> tuple:
     """Device busy time and the top kernels over ``n_ticks`` steady
-    decode ticks (all 8 requests running), from a CUPTI trace.  With
-    ``tenants`` each tick also rotates a tenant and reseals its pages."""
+    decode ticks (all 8 requests running), from a CUPTI trace, and the
+    engine, still running.  With ``tenants`` each tick also rotates a
+    tenant and reseals its pages."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -777,7 +815,7 @@ def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_ticks
     return {"tick_ms": plain_wall * 1e3,
-            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}
+            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}, eng
 
 
 CRYPTO_SYMBOLS = ("aes_ctr_keystream", "fused_crypt_mac", "otp_xor",
@@ -811,9 +849,9 @@ def phase_profile(arch, cfg, results: dict) -> dict:
     for key, scheme, use_kernel, tenants in (
             ("seda_kernel", "seda", True, False), ("off", "off", False, False),
             ("seda_kernel_4_tenants", "seda", True, True)):
-        out[key] = _profile_ticks(arch, cfg, results["params"],
-                                  results["prompts"], scheme, use_kernel,
-                                  tenants)
+        out[key], _ = _profile_ticks(arch, cfg, results["params"],
+                                     results["prompts"], scheme, use_kernel,
+                                     tenants)
     results["profile_seda"] = out["seda_kernel"]
     return out
 
@@ -833,7 +871,9 @@ def _prefill_logits(cfg, params, prompt):
     return lm.lm_prefill(cfg, params, {"tokens": tokens}, len(prompt))
 
 
-def phase_tamper(arch, cfg, params) -> dict:
+def phase_tamper(arch, cfg, params, leaf: int = 0) -> dict:
+    """A flipped byte of paged leaf ``leaf`` of a live page: the next
+    ``step()`` must raise."""
     import numpy as np
 
     from repro_torch.serve.engine import IntegrityError, SecureServingEngine
@@ -848,13 +888,14 @@ def phase_tamper(arch, cfg, params) -> dict:
     eng.step()
     eng.step()
     page = eng.slots[0].pages[0]
-    eng.pool.cts[0][page, 123] ^= 0x10
+    eng.pool.cts[leaf][page, 123] ^= 0x10
     try:
         eng.step()
     except IntegrityError as e:
-        return {"page": int(page), "raised": type(e).__name__,
+        return {"leaf": leaf, "page": int(page), "raised": type(e).__name__,
                 "message": str(e)}
-    raise AssertionError("a flipped ciphertext byte was not detected")
+    raise AssertionError(f"a flipped ciphertext byte of paged leaf {leaf} "
+                         "was not detected")
 
 
 def phase_tenants(arch, cfg, results: dict) -> dict:
@@ -1753,11 +1794,15 @@ def _cluster_once(arch, cfg, params, prompts, scheme, use_kernel,
         "tok_per_s": sum(len(t) for t in tokens) / wall}
 
 
+def _pool_bytes(eng) -> list:
+    """An engine's pool (cts, page MACs, VNs, pool MAC) on the host."""
+    return [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
+                              eng.pool.page_vns, eng.pool.pool_mac)]
+
+
 def _pools(cl) -> list:
-    """Both shards' pools (cts, page MACs, VNs, pool MAC) on the host."""
-    return [[t.cpu() for t in (*e.pool.cts, e.pool.page_macs,
-                               e.pool.page_vns, e.pool.pool_mac)]
-            for e in cl.engines]
+    """Both shards' pools on the host."""
+    return [_pool_bytes(e) for e in cl.engines]
 
 
 def _same_pools(a: list, b: list) -> bool:
@@ -2246,6 +2291,340 @@ def phase_launch(results: dict) -> dict:
                        "first_request_tokens": simple["tokens"][0].tolist()}}
 
 
+# The archs phase: the attention-family configs at full width, in the
+# order they are served (the largest, granite, after the MoE one).
+ARCH_NAMES = ("minitron-8b", "olmoe-1b-7b", "granite-34b", "deepseek-v3-671b")
+DEEPSEEK_LAYERS = 4        # of 61: the 3 dense layers and 1 MoE layer
+# The attn mixer's wq and wk are drawn at this multiple of their fan-in
+# scale.  At fan-in scale each head's softmax averages most of the
+# window, and granite's 88 GELU + MQA layers then give every position of
+# a request the same hidden state: greedy decoding repeats one token per
+# request, whatever the decrypted pages hold.  Near-hard attention makes
+# each head pick positions, so the tokens depend on the KV pages.
+ATTN_QK_SCALE = 8.0
+# A cell fails when its greedy tokens hold fewer distinct ids than this
+# share of the tokens generated: the tokens would not depend on the KV.
+MIN_DISTINCT_SHARE = 0.5
+MOE_SPANS = ("_route", "_dispatch", "_experts", "_combine")
+
+
+def _arch_config(name: str) -> tuple:
+    """(arch, full-width config, the depth cut or None)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    arch = get_arch(name)
+    cfg = arch.make_config()
+    cut = None
+    if name == "deepseek-v3-671b":
+        cut = (f"n_layers {cfg.n_layers} -> {DEEPSEEK_LAYERS} (3 dense + 1 "
+               "MoE, moe_start_layer 3, full width): 61 layers need ~1.3 TB")
+        cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    return arch, cfg, cut
+
+
+def _arch_params(cfg, seed: int = 0):
+    """Random full-width weights from a seed, drawn on the card straight
+    in each leaf's dtype (no float32 temporary: granite's stacked
+    ``w_up`` alone holds 13.3 G elements), at one layer's fan-in as
+    :func:`_full_params` rescales to, and at one expert's for the routed
+    experts' stacked (E, d, f) leaves; the attn mixer's wq and wk at
+    ``ATTN_QK_SCALE`` times that."""
+    import math
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import DTYPES, ParamSpec
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def draw(s, path):
+        t = torch.empty(s.shape, dtype=DTYPES[s.dtype], device="cuda")
+        if s.init == "ones":
+            return t.fill_(1)
+        if s.init == "zeros":
+            return t.zero_()
+        if s.init == "embed":
+            return t.normal_(0.0, 0.02, generator=gen)
+        skip = int(path[0] == "segments")                 # the layer axis
+        skip += int(len(path) > 1 and path[-2] == "moe"
+                    and path[-1] in ("w_gate", "w_up", "w_down"))
+        fan_in = math.prod(s.shape[skip:-1])
+        std = 1.0 / math.sqrt(max(1, fan_in))
+        if path[-2:] in (("attn", "wq"), ("attn", "wk")):
+            std *= ATTN_QK_SCALE
+        return t.normal_(0.0, std, generator=gen)
+
+    def walk(node, path):
+        if isinstance(node, ParamSpec):
+            return draw(node, path)
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return [walk(v, path + (i,)) for i, v in enumerate(node)]
+
+    return walk(lm.lm_specs(cfg), ())
+
+
+def _weight_read_bytes(cfg, params) -> int:
+    """Bytes of weights one decode tick reads: every leaf (the reference
+    runs every expert over its (E, C, d) buffer), less an untied
+    embedding, of which a tick gathers only its rows."""
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        total -= params["embed"].numel() * params["embed"].element_size()
+    return total
+
+
+class _MoESpans:
+    """While open, each MoE stage runs inside a profiler range
+    ``moe.<stage>`` (the stages are module functions, patched here)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import moe
+        self.saved = {n: getattr(moe, n) for n in MOE_SPANS}
+
+        def wrap(name, fn):
+            def inner(*args, **kwargs):
+                with record_function(f"moe.{name}"):
+                    return fn(*args, **kwargs)
+            return inner
+
+        for name, fn in self.saved.items():
+            setattr(moe, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        for name, fn in self.saved.items():
+            setattr(moe, name, fn)
+        return False
+
+
+def _profile_arch(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
+    """The profile phase's tick breakdown, and for MoE each stage's
+    device ms per tick from a second trace with the stages annotated
+    (router, dispatch = argsort + rank + gather + scatter, the expert
+    GEMMs, combine = gather + un-sort + gate sum)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out, eng = _profile_ticks(arch, cfg, params, prompts, "seda", True,
+                              n_ticks=n_ticks)
+    if cfg.ffn == "moe":
+        with _MoESpans(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_ticks):
+                eng.step()
+            torch.cuda.synchronize()
+        spans = {name: 0.0 for name in MOE_SPANS}
+        for e in prof.events():
+            key = e.name[len("moe."):]
+            if e.name.startswith("moe.") and key in spans and \
+                    e.device_type == DeviceType.CPU:
+                spans[key] += e.device_time_total / 1e3 / n_ticks
+        out["moe_ms_per_tick"] = spans
+        out["moe_dispatch_ms_per_tick"] = spans["_dispatch"] + \
+            spans["_combine"]
+    return out
+
+
+def _arch_smoke_f32(name: str) -> dict:
+    """The smoke config (float32) served under seda with the kernels
+    gives the plain loop's tokens.  An MoE row competes for expert
+    capacity with the other rows of its tick, so MoE configs take one
+    slot, which the plain loop's batch of one matches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch(name)
+    cfg = arch.make_smoke_config()
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
+               for n in (5, 7, 9)]
+    slots = 1 if cfg.ffn == "moe" else 2
+    eng = SecureServingEngine(arch, cfg, params, scheme="seda",
+                              use_kernel=True, max_slots=slots,
+                              page_tokens=4, pages_per_slot=4)
+    rids = [eng.submit(prompt=p, max_new_tokens=6) for p in prompts]
+    done = eng.run()
+    got = [done[r].generated for r in rids]
+    with torch.no_grad():
+        want = [_dense_tokens(cfg, params, p, 6, 16, bucketed=True)
+                for p in prompts]
+    if got != want:
+        raise AssertionError(f"{cfg.name}: engine tokens {got} != plain "
+                             f"loop {want}")
+    return {"config": cfg.name, "max_slots": slots, "tokens": got}
+
+
+def _arch_tenants(arch, cfg, params, prompts, want) -> dict:
+    """The cell's requests over 4 tenants, one rotation every tick: the
+    single-tenant tokens, every tick mixed-key."""
+    _, tokens, run = _serve_once(arch, cfg, params, prompts, "seda", True,
+                                 tenants=True)
+    stats = run["stats"]
+    zero = [k for k in MIXED_KEY if run["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"mixed-key kernels never launched: {zero}")
+    if tokens != want:
+        raise AssertionError("4-tenant tokens differ from the single-tenant "
+                             f"run: agreement {_agreement(tokens, want)}")
+    if stats["fused_mixed_ticks"] != stats["decode_steps"] or \
+            stats["rotations"] <= 0 or stats["reseals"] <= 0 or \
+            not run["deferred_mac_ok"]:
+        raise AssertionError(f"tenants run: {stats}")
+    return {"launches": {k: run["launches"][k] for k in MIXED_KEY},
+            "tok_per_s": run["tok_per_s"],
+            "stats": {k: stats[k] for k in ("decode_steps", "rotations",
+                                            "reseals", "fused_mixed_ticks")}}
+
+
+def _arch_cell(name: str) -> dict:
+    """One config at full width: seda with and without the kernels and
+    ``off`` once each, the pools byte-equal, B1-B3 launching, the
+    deferred MAC, a traced tick; deepseek also tampered and tenanted."""
+    import gc
+
+    import numpy as np
+    import torch
+    arch, cfg, cut = _arch_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _arch_params(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = _weight_read_bytes(cfg, params)
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, SERVE["prompt_len"])))
+               for _ in range(SERVE["n_requests"])]
+    with torch.no_grad():
+        logits, _ = _prefill_logits(cfg, params, prompts[0])
+    if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(
+            logits.float()).all():
+        raise AssertionError(f"{name}: prefill logits not finite or "
+                             "misshapen")
+    del logits
+    runs, tokens, pools = {}, {}, {}
+    for key, scheme, use_kernel in (("seda_kernel", "seda", True),
+                                    ("seda_plain", "seda", False),
+                                    ("off", "off", False)):
+        eng, tokens[key], runs[key] = _serve_once(arch, cfg, params, prompts,
+                                                  scheme, use_kernel)
+        if scheme == "seda":
+            pools[key] = _pool_bytes(eng)
+        del eng
+        torch.cuda.empty_cache()
+    main = runs["seda_kernel"]
+    zero = [k for k in SINGLE_KEY if main["launches"][k] <= 0]
+    if zero:
+        raise AssertionError(f"{name}: kernels never launched: {zero}")
+    if not (tokens["seda_kernel"] == tokens["seda_plain"] == tokens["off"]):
+        raise AssertionError(f"{name}: tokens differ between seda+kernels, "
+                             "seda plain and off")
+    if not _same_pools([pools["seda_kernel"]], [pools["seda_plain"]]):
+        raise AssertionError(f"{name}: pools differ with the kernels on "
+                             "and off")
+    if not all(r["deferred_mac_ok"] for r in runs.values()):
+        raise AssertionError(f"{name}: deferred pool MAC failed")
+    flat = [t for seq in tokens["seda_kernel"] for t in seq]
+    if (any(len(t) != SERVE["new_tokens"] for t in tokens["seda_kernel"])
+            or not all(0 <= t < cfg.vocab for t in flat)):
+        raise AssertionError(f"{name}: wrong token counts or ids")
+    if len(set(flat)) < MIN_DISTINCT_SHARE * len(flat):
+        raise AssertionError(f"{name}: {len(set(flat))} distinct tokens of "
+                             f"{len(flat)}: the tokens do not depend on the "
+                             "KV pages")
+    del pools
+    profile = _profile_arch(arch, cfg, params, prompts)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    out = {"config": cfg.name, "cut": cut, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "init_s": init_s,
+           "weight_read_gb": weight_bytes / 1e9,
+           "weight_read_bound_ms": bound_ms,
+           "distinct_tokens": len(set(flat)),
+           "first_request_tokens": tokens["seda_kernel"][0],
+           "launches": {k: main["launches"][k] for k in SINGLE_KEY},
+           "stats": {k: main["stats"][k] for k in (
+               "admitted", "decode_steps", "fused_write_ticks",
+               "uniform_fast_ticks", "decode_page_reads")},
+           "tok_per_s": {k: r["tok_per_s"] for k, r in runs.items()},
+           "host_ms_per_tick": {k: r["wall_s"] / max(1, r["ticks"]) * 1e3
+                                for k, r in runs.items()},
+           "profile": profile,
+           "device_busy_over_bound": profile["device_busy_ms"] / bound_ms}
+    if name == "deepseek-v3-671b":         # c_kv is leaf 0, k_pe leaf 1
+        out["tamper"] = [phase_tamper(arch, cfg, params, leaf)
+                         for leaf in (0, 1)]
+        out["tenants"] = _arch_tenants(arch, cfg, params, prompts,
+                                       tokens["seda_kernel"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _launch_olmoe() -> dict:
+    """olmoe through the launcher: the paged engine under seda, the
+    deferred pool MAC OK."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve as launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "olmoe-1b-7b", "--engine", "paged", "--scheme", "seda",
+            "--batch", str(SERVE["n_requests"]),
+            "--prompt-len", str(SERVE["prompt_len"]),
+            "--gen-len", str(SERVE["new_tokens"]), "--quiet"]
+    out = launch.main(argv)
+    shape = tuple(out["tokens"].shape)
+    if shape != (SERVE["n_requests"], SERVE["new_tokens"]) or \
+            not out["deferred_mac_ok"] or \
+            out["stats"]["fused_write_ticks"] <= 0:
+        raise AssertionError(f"olmoe launcher run: shape {shape}, "
+                             f"{out['stats']}, deferred MAC "
+                             f"{out['deferred_mac_ok']}")
+    return {"argv": argv, "tok_per_s": out["tok_per_s"],
+            "deferred_mac_ok": True}
+
+
+def phase_archs(results: dict) -> dict:
+    """The attention-family configs at full width on the card, after
+    every earlier model is freed."""
+    import gc
+
+    import torch
+    results.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"allocated_gb_at_start": torch.cuda.memory_allocated() / 1e9,
+           "f32_smoke": [_arch_smoke_f32(name) for name in ARCH_NAMES]}
+    for name in ARCH_NAMES:
+        out[name] = _arch_cell(name)
+        print(f"[archs] {name}: peak {out[name]['peak_mem_gb']:.2f} GB, "
+              f"host {out[name]['host_ms_per_tick']['seda_kernel']:.1f} "
+              f"ms/tick, {out[name]['tok_per_s']['seda_kernel']:.1f} tok/s",
+              flush=True)
+        if name == "olmoe-1b-7b":
+            out["olmoe_launcher"] = _launch_olmoe()
+    results["archs_launches"] = {
+        name: out[name]["launches"] for name in ARCH_NAMES}
+    return out
+
+
 KERNEL_META = {
     "aes_ctr_keystream": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
                           "src/repro/kernels/aes_ctr/kernel.py:178"),
@@ -2300,6 +2679,7 @@ def main() -> int:
         ("checkpoint", lambda: phase_checkpoint(arch, cfg, results)),
         ("shards", lambda: phase_shards(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),
+        ("archs", lambda: phase_archs(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -1,4 +1,8 @@
-"""Architecture registry of the port: the dense archs this slice serves.
+"""Architecture registry of the port: the attention-mixer LMs.
+
+Dense (minitron, smollm), the GELU-MLP MQA stack (granite), MoE (olmoe)
+and MLA + MoE (deepseek-v3).  The Mamba, vision and encoder-decoder
+archs are not ported yet (ROADMAP A6).
 
 ``get_arch(name)`` returns an :class:`ArchDef` with the published config
 (``make_config``) and the reduced smoke config the tests use.
@@ -10,8 +14,22 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.models.lm import LMConfig
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
-__all__ = ["ArchDef", "ARCHS", "get_arch"]
+__all__ = ["ArchDef", "ARCHS", "get_arch", "NOT_PORTED"]
+
+# The reference's other archs, each with the ROADMAP item it waits for.
+NOT_PORTED = {
+    "mamba2-780m": "ROADMAP A6: the Mamba mixer and the engine's on-chip "
+                   "recurrent state",
+    "jamba-v0.1-52b": "ROADMAP A6: the Mamba mixer and the engine's on-chip "
+                      "recurrent state",
+    "pixtral-12b": "ROADMAP A6/A7: the image projector (img_proj), with "
+                   "training; the reference engine serves no images",
+    "seamless-m4t-large-v2": "ROADMAP A6: the encoder-decoder family "
+                             "(encdec)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,15 +68,113 @@ def _smollm_135m_smoke() -> LMConfig:
                     dtype="float32", q_block=16, kv_block=16)
 
 
+def _minitron_8b() -> LMConfig:
+    # [dense] 32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
+    return LMConfig(name="minitron-8b", n_layers=32, d_model=4096,
+                    n_heads=32, n_kv=8, head_dim=128, d_ff=16384,
+                    vocab=256000, mixer="attn", ffn="dense",
+                    tie_embeddings=True)
+
+
+def _minitron_8b_smoke() -> LMConfig:
+    return LMConfig(name="minitron-8b-smoke", n_layers=2, d_model=64,
+                    n_heads=4, n_kv=2, head_dim=16, d_ff=128, vocab=256,
+                    dtype="float32", mixer="attn", ffn="dense", q_block=16,
+                    kv_block=16)
+
+
+def _granite_34b() -> LMConfig:
+    # [dense] 88L d_model=6144 48H (GQA kv=1, i.e. MQA) d_ff=24576
+    # vocab=49152; GPT-BigCode plain GELU MLP.
+    return LMConfig(name="granite-34b", n_layers=88, d_model=6144,
+                    n_heads=48, n_kv=1, head_dim=128, d_ff=24576,
+                    vocab=49152, mixer="attn", ffn="dense", gated_ffn=False,
+                    tie_embeddings=True)
+
+
+def _granite_34b_smoke() -> LMConfig:
+    return LMConfig(name="granite-34b-smoke", n_layers=2, d_model=64,
+                    n_heads=4, n_kv=1, head_dim=16, d_ff=128, vocab=256,
+                    dtype="float32", mixer="attn", ffn="dense",
+                    gated_ffn=False, q_block=16, kv_block=16)
+
+
+def _olmoe_1b_7b() -> LMConfig:
+    # [moe] 16L d_model=2048 16H (kv=16 = MHA) d_ff=1024 (per expert)
+    # vocab=50304, MoE 64 experts top-8 on every layer.
+    return LMConfig(name="olmoe-1b-7b", n_layers=16, d_model=2048,
+                    n_heads=16, n_kv=16, head_dim=128, d_ff=1024,
+                    vocab=50304, mixer="attn", ffn="moe", moe_every=1,
+                    tie_embeddings=True,
+                    moe=MoEConfig(n_experts=64, top_k=8, d_model=2048,
+                                  d_ff=1024, capacity_factor=1.25))
+
+
+def _olmoe_1b_7b_smoke() -> LMConfig:
+    return LMConfig(name="olmoe-1b-7b-smoke", n_layers=2, d_model=64,
+                    n_heads=4, n_kv=4, head_dim=16, d_ff=32, vocab=256,
+                    dtype="float32", mixer="attn", ffn="moe", moe_every=1,
+                    q_block=16, kv_block=16,
+                    moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32,
+                                  capacity_factor=2.0))
+
+
+DEEPSEEK_DENSE_PREFIX_FF = 18432   # d_ff of the 3 dense prefix layers
+
+
+def _deepseek_v3_671b() -> LMConfig:
+    # [moe] 61L d_model=7168 128H d_ff=2048 (per routed expert)
+    # vocab=129280; 1 shared + 256 routed experts top-8, the first 3
+    # layers dense (d_ff 18432); MLA q_lora 1536, kv_lora 512, nope 128,
+    # rope 64, v 128; untied head.  The MTP head is omitted, as in the
+    # reference.
+    return LMConfig(name="deepseek-v3-671b", n_layers=61, d_model=7168,
+                    n_heads=128, n_kv=128, head_dim=128,
+                    d_ff=DEEPSEEK_DENSE_PREFIX_FF, vocab=129280,
+                    mixer="mla", ffn="moe", moe_every=1, moe_start_layer=3,
+                    tie_embeddings=False,
+                    mla=MLAConfig(d_model=7168, n_heads=128, q_lora_rank=1536,
+                                  kv_lora_rank=512, qk_nope_dim=128,
+                                  qk_rope_dim=64, v_head_dim=128),
+                    moe=MoEConfig(n_experts=256, top_k=8, d_model=7168,
+                                  d_ff=2048, n_shared=1, shared_d_ff=2048,
+                                  capacity_factor=1.25))
+
+
+def _deepseek_v3_671b_smoke() -> LMConfig:
+    return LMConfig(name="deepseek-v3-671b-smoke", n_layers=4, d_model=64,
+                    n_heads=4, n_kv=4, head_dim=16, d_ff=128, vocab=256,
+                    dtype="float32", mixer="mla", ffn="moe", moe_every=1,
+                    moe_start_layer=1, tie_embeddings=False, q_block=16,
+                    kv_block=16,
+                    mla=MLAConfig(d_model=64, n_heads=4, q_lora_rank=32,
+                                  kv_lora_rank=16, qk_nope_dim=16,
+                                  qk_rope_dim=8, v_head_dim=16),
+                    moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32,
+                                  n_shared=1, shared_d_ff=32,
+                                  capacity_factor=2.0))
+
+
 ARCHS = {a.name: a for a in (
     ArchDef("minitron-4b", "dense", "lm", _minitron_4b, _minitron_4b_smoke,
             "arXiv:2407.14679; hf"),
     ArchDef("smollm-135m", "dense", "lm", _smollm_135m, _smollm_135m_smoke,
             "hf:HuggingFaceTB/SmolLM-135M; hf"),
+    ArchDef("minitron-8b", "dense", "lm", _minitron_8b, _minitron_8b_smoke,
+            "arXiv:2407.14679; hf"),
+    ArchDef("granite-34b", "dense", "lm", _granite_34b, _granite_34b_smoke,
+            "arXiv:2405.04324; hf"),
+    ArchDef("olmoe-1b-7b", "moe", "lm", _olmoe_1b_7b, _olmoe_1b_7b_smoke,
+            "arXiv:2409.02060; hf"),
+    ArchDef("deepseek-v3-671b", "moe", "lm", _deepseek_v3_671b,
+            _deepseek_v3_671b_smoke, "arXiv:2412.19437; hf"),
 )}
 
 
 def get_arch(name: str) -> ArchDef:
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet "
+                                  f"({NOT_PORTED[name]})")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
     return ARCHS[name]

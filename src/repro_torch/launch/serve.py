@@ -16,6 +16,16 @@ cache::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
         --smoke --device cpu --engine simple --batch 4 --gen-len 8
 
+``--arch`` takes every attention-mixer LM of the reference: the dense
+minitron-4b/-8b and smollm-135m, granite-34b (GELU MLP, MQA),
+olmoe-1b-7b (MoE) and deepseek-v3-671b (MLA + MoE), with either engine::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --smoke --device cpu --engine paged --scheme seda
+
+The Mamba, vision and encoder-decoder archs exit with the ROADMAP item
+they wait for.
+
 ``--tenants N`` registers N tenants and serves the batch round-robin
 across their sessions, each tenant's pages under its own (tenant,
 epoch) keys; ``--rotate-every K`` rotates one tenant's keys every K
@@ -215,8 +225,11 @@ def main(argv=None) -> dict:
                          "--http-port/--fault-tolerance need --engine "
                          "paged (the simple loop has no observability "
                          "surface)")
+    try:
+        arch = get_arch(args.arch)
+    except NotImplementedError as e:       # a family not ported yet
+        raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
-    arch = get_arch(args.arch)
     cfg = arch.make_smoke_config() if args.smoke else arch.make_config()
     specs = lm_mod.lm_specs(cfg)
     step = latest_step(args.ckpt_dir) if args.ckpt_dir else None

@@ -1,6 +1,9 @@
-"""Pre-norm residual blocks: ``LayerKind("attn", "dense")`` only.
+"""Pre-norm residual blocks: (mixer, ffn) pairs.
 
-Other mixers (MLA, Mamba) and MoE FFNs are not ported yet and raise.
+mixer: 'attn' (GQA/MQA + RoPE) | 'mla' (DeepSeek latent)
+ffn:   'dense' (SwiGLU or GELU MLP) | 'moe' (top-k routed)
+
+The Mamba mixer (and its 'none' FFN) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -8,13 +11,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import dense, rms_norm, spec
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import rms_norm, spec
 
 __all__ = ["LayerKind", "block_specs", "block_prefill", "block_decode",
-           "block_cache_specs", "dense_ffn"]
+           "block_cache_specs"]
+
+MIXERS = ("attn", "mla")
+FFNS = ("dense", "moe")
 
 
 class LayerKind(NamedTuple):
@@ -23,41 +30,47 @@ class LayerKind(NamedTuple):
 
 
 def _check(kind: LayerKind) -> None:
-    if kind != LayerKind("attn", "dense"):
-        raise NotImplementedError(f"block kind {kind} is not ported yet "
-                                  "(attn + dense only)")
+    if kind.mixer == "mamba" or kind.ffn == "none":
+        raise NotImplementedError(
+            f"block kind {kind}: the Mamba mixer is not ported yet "
+            "(ROADMAP A6: mamba2-780m, then jamba-v0.1-52b)")
+    if kind.mixer not in MIXERS or kind.ffn not in FFNS:
+        raise ValueError(f"unknown block kind {kind}")
 
 
 def block_specs(cfg, kind: LayerKind) -> dict:
     _check(kind)
-    if not cfg.gated_ffn:
-        raise NotImplementedError("the GELU MLP is not ported (SwiGLU only)")
-    ffn = {"w_up": spec((cfg.d_model, cfg.d_ff), cfg.dtype),
-           "w_down": spec((cfg.d_ff, cfg.d_model), cfg.dtype),
-           "w_gate": spec((cfg.d_model, cfg.d_ff), cfg.dtype)}
-    return {
-        "norm_mixer": spec((cfg.d_model,), "float32", init="ones"),
-        "attn": attn_mod.attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                         cfg.head_dim, cfg.dtype),
-        "norm_ffn": spec((cfg.d_model,), "float32", init="ones"),
-        "ffn": ffn,
-    }
+    s: dict = {"norm_mixer": spec((cfg.d_model,), "float32", init="ones")}
+    if kind.mixer == "attn":
+        s["attn"] = attn_mod.attention_specs(cfg.d_model, cfg.n_heads,
+                                             cfg.n_kv, cfg.head_dim,
+                                             cfg.dtype)
+    else:
+        s["mla"] = mla_mod.mla_specs(cfg.mla, cfg.dtype)
+    s["norm_ffn"] = spec((cfg.d_model,), "float32", init="ones")
+    if kind.ffn == "dense":
+        s["ffn"] = moe_mod.ffn_specs(cfg.d_model, cfg.d_ff, cfg.dtype,
+                                     gated=cfg.gated_ffn)
+    else:
+        s["moe"] = moe_mod.moe_specs(cfg.moe, cfg.dtype)
+    return s
 
 
-def dense_ffn(params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: (..., d) -> (..., d)."""
-    up = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
-    return dense(up, params["w_down"])
-
-
-def _apply_ffn(params, x):
-    return x + dense_ffn(params["ffn"], rms_norm(x, params["norm_ffn"]))
+def _apply_ffn(cfg, kind: LayerKind, params, x):
+    h = rms_norm(x, params["norm_ffn"])
+    if kind.ffn == "dense":
+        return x + moe_mod.dense_ffn(params["ffn"], h)
+    b, l, d = h.shape
+    y, _ = moe_mod.moe_ffn(cfg.moe, params["moe"], h.reshape(b * l, d))
+    return x + y.reshape(b, l, d)
 
 
 def block_cache_specs(cfg, kind: LayerKind, batch: int, max_len: int):
     _check(kind)
-    return attn_mod.init_kv_cache_specs(batch, max_len, cfg.n_kv,
-                                        cfg.head_dim, cfg.dtype)
+    if kind.mixer == "attn":
+        return attn_mod.init_kv_cache_specs(batch, max_len, cfg.n_kv,
+                                            cfg.head_dim, cfg.dtype)
+    return mla_mod.init_mla_cache_specs(cfg.mla, batch, max_len, cfg.dtype)
 
 
 def _pad_to(x: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -71,18 +84,30 @@ def block_prefill(cfg, kind: LayerKind, params, x, positions, max_len: int):
     """Forward + this block's decode cache (padded to max_len)."""
     _check(kind)
     h = rms_norm(x, params["norm_mixer"])
-    out, (k, v) = attn_mod.attention(params["attn"], h, positions,
-                                     q_block=cfg.q_block,
-                                     kv_block=cfg.kv_block, return_kv=True)
-    x = x + out
-    cache = attn_mod.KVCache(_pad_to(k, max_len), _pad_to(v, max_len),
-                             torch.tensor(x.shape[1], dtype=torch.int32,
-                                          device=x.device))
-    return _apply_ffn(params, x), cache
+    length = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    if kind.mixer == "attn":
+        out, (k, v) = attn_mod.attention(params["attn"], h, positions,
+                                         q_block=cfg.q_block,
+                                         kv_block=cfg.kv_block,
+                                         return_kv=True)
+        cache = attn_mod.KVCache(_pad_to(k, max_len), _pad_to(v, max_len),
+                                 length)
+    else:
+        out = mla_mod.mla_attention(cfg.mla, params["mla"], h, positions,
+                                    q_block=cfg.q_block,
+                                    kv_block=cfg.kv_block)
+        c_kv, k_pe = mla_mod._project_kv_latent(cfg.mla, params["mla"], h,
+                                                positions)
+        cache = mla_mod.MLACache(_pad_to(c_kv, max_len),
+                                 _pad_to(k_pe, max_len), length)
+    return _apply_ffn(cfg, kind, params, x + out), cache
 
 
 def block_decode(cfg, kind: LayerKind, params, x, cache):
     _check(kind)
     h = rms_norm(x, params["norm_mixer"])
-    out, cache = attn_mod.decode_attention(params["attn"], h, cache)
-    return _apply_ffn(params, x + out), cache
+    if kind.mixer == "attn":
+        out, cache = attn_mod.decode_attention(params["attn"], h, cache)
+    else:
+        out, cache = mla_mod.mla_decode(cfg.mla, params["mla"], h, cache)
+    return _apply_ffn(cfg, kind, params, x + out), cache

@@ -1,16 +1,21 @@
-"""Decoder-only LM: specs, prefill and decode (dense attention stacks).
+"""Decoder-only LM: specs, prefill and decode (attention-mixer stacks).
 
-The reference scans one block body over per-segment stacked parameters;
-here a Python loop over the layer index does the same work.  The
-parameter tree keeps the reference layout::
+Homogeneous stacks (minitron, granite, smollm, olmoe) are one segment;
+prefix-irregular ones (deepseek-v3: dense layers, then MoE) split into
+maximal uniform segments.  The reference scans one block body over
+per-segment stacked parameters; here a Python loop over the layer index
+does the same work.  The parameter tree keeps the reference layout::
 
-    {"embed": (vocab, d), "final_norm": (d,),
+    {"embed": (vocab, d), "final_norm": (d,), ["lm_head": (d, vocab),]
      "segments": [[{"norm_mixer": (L, d), "attn": {"wq": (L, d, H, D), ...},
                     "norm_ffn": (L, d), "ffn": {"w_up": (L, d, F), ...}}]]}
 
-Caches are ``[[KVCache(k (L, B, max_len, n_kv, D), v, length (L, ...))]]``,
-so a flat walk over them gives the reference's leaf order (k, v, length).
-:class:`LM` holds such a tree as ``nn.Parameter``s.
+with ``"mla"`` in place of ``"attn"`` and ``"moe"`` in place of
+``"ffn"`` where the layer kind says so.  Caches are
+``[[KVCache(k (L, B, max_len, n_kv, D), v, length (L, ...))]]`` (or
+``MLACache(c_kv, k_pe, length)``), so a flat walk over them gives the
+reference's leaf order.  :class:`LM` holds such a tree as
+``nn.Parameter``s.
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ import torch
 from torch import nn
 
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import CacheSpec, KVCache
+from repro_torch.models.attention import CacheSpec
 from repro_torch.models.layers import ParamSpec, rms_norm, spec, tree_map
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
 __all__ = ["LMConfig", "LM", "layout", "segments", "lm_specs", "cache_specs",
            "lm_prefill", "lm_decode"]
@@ -40,9 +47,15 @@ class LMConfig:
     vocab: int
     head_dim: int = 0             # 0 -> d_model // n_heads
     dtype: str = "bfloat16"
-    mixer: str = "attn"
-    ffn: str = "dense"
-    gated_ffn: bool = True        # SwiGLU; False = GELU MLP
+    # Block pattern:
+    mixer: str = "attn"           # attn | mla
+    ffn: str = "dense"            # dense | moe
+    moe_every: int = 1            # moe where idx % moe_every == moe_offset
+    moe_offset: int = 0
+    moe_start_layer: int = 0      # deepseek: dense layers before this index
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    gated_ffn: bool = True        # SwiGLU; False = plain GELU MLP (granite)
     tie_embeddings: bool = True
     q_block: int = 512
     kv_block: int = 1024
@@ -54,12 +67,22 @@ class LMConfig:
 
 
 def layout(cfg: LMConfig) -> list:
-    return [blk.LayerKind(cfg.mixer, cfg.ffn) for _ in range(cfg.n_layers)]
+    """Per-layer (mixer, ffn) kinds."""
+    kinds = []
+    for i in range(cfg.n_layers):
+        ffn = cfg.ffn
+        if cfg.ffn == "moe":
+            is_moe = (i >= cfg.moe_start_layer
+                      and i % cfg.moe_every == cfg.moe_offset)
+            ffn = "moe" if is_moe else "dense"
+        kinds.append(blk.LayerKind(cfg.mixer, ffn))
+    return kinds
 
 
 def segments(cfg: LMConfig) -> list:
     """[(period_kinds: tuple[LayerKind], steps: int), ...] — maximal
-    uniform runs (one run for a homogeneous stack)."""
+    uniform runs (one run for a homogeneous stack; deepseek-v3 cut to 4
+    layers gives two: 3 x (mla, dense), then 1 x (mla, moe))."""
     kinds = layout(cfg)
     segs, i = [], 0
     while i < len(kinds):
@@ -90,10 +113,17 @@ def lm_specs(cfg: LMConfig) -> dict:
 
 def cache_specs(cfg: LMConfig, batch: int, max_len: int) -> list:
     """Per-segment stacked cache specs (CacheSpec leaves)."""
-    return [[KVCache(*(CacheSpec((steps,) + c.shape, c.dtype)
-                       for c in blk.block_cache_specs(cfg, kind, batch,
-                                                      max_len)))
+    def stacked(c, steps):
+        return type(c)(*(CacheSpec((steps,) + leaf.shape, leaf.dtype)
+                         for leaf in c))
+
+    return [[stacked(blk.block_cache_specs(cfg, kind, batch, max_len), steps)
              for kind in kinds] for kinds, steps in segments(cfg)]
+
+
+def _stack_caches(caches: list):
+    """Per-layer caches of one kind -> one cache with stacked leaves."""
+    return type(caches[0])(*(torch.stack(leaf) for leaf in zip(*caches)))
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -126,8 +156,7 @@ def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
                 x, cache = blk.block_prefill(cfg, kind, _layer(p, i), x,
                                              positions, max_len)
                 per_kind[j].append(cache)
-        caches.append([KVCache(*(torch.stack(leaf) for leaf in zip(*cs)))
-                       for cs in per_kind])
+        caches.append([_stack_caches(cs) for cs in per_kind])
     x = rms_norm(x, params["final_norm"])
     last = x[:, -1:] if last_pos is None else x[:, last_pos: last_pos + 1]
     return _head(cfg, params, last), caches
@@ -144,10 +173,9 @@ def lm_decode(cfg: LMConfig, params, tokens: torch.Tensor, caches):
             for j, (kind, p, c) in enumerate(zip(kinds, seg_params,
                                                  seg_cache)):
                 x, new = blk.block_decode(cfg, kind, _layer(p, i), x,
-                                          KVCache(*(leaf[i] for leaf in c)))
+                                          type(c)(*(leaf[i] for leaf in c)))
                 per_kind[j].append(new)
-        new_caches.append([KVCache(*(torch.stack(leaf) for leaf in zip(*cs)))
-                           for cs in per_kind])
+        new_caches.append([_stack_caches(cs) for cs in per_kind])
     x = rms_norm(x, params["final_norm"])
     return _head(cfg, params, x), new_caches
 

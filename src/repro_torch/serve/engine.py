@@ -365,7 +365,8 @@ class SecureServingEngine(SubmitAPI):
                            for i, f in enumerate(lengths) if f]
         if any(not paged[i] and not lengths[i] for i in range(len(flat))):
             raise NotImplementedError("on-chip recurrent cache state is not "
-                                      "ported (dense attention only)")
+                                      "ported (attention caches only; "
+                                      "ROADMAP A6)")
         self.n_leaves = len(flat)
         self.spec = kvp.build_page_spec(
             self._cache_tree, scheme=scheme, page_tokens=page_tokens,

@@ -12,7 +12,11 @@ tokens, quarantined frames and containment counters, its probes on the
 single-key or the mixed-key kernels.  A two-shard cluster on the card
 gives the CPU's tokens and counters, its pools byte-equal with the
 kernels on and off; with one shard on the card and one on the CPU, the
-migration's plaintext hops between the devices.
+migration's plaintext hops between the devices.  Each attention-family
+smoke config (granite, olmoe, deepseek, minitron-8b) served on the card
+with the kernels gives the plain and the CPU tokens, its pools
+byte-equal with the kernels on and off; a flipped byte of a deepseek
+latent page (c_kv or k_pe) raises.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -673,3 +677,73 @@ def test_migrate_refuses_pools_on_two_devices(card):
         kvp.migrate_pages(kvp.init_pool(spec, card), spec,
                           kvp.init_pool(spec, "cpu"), spec, keys, [0], [1],
                           9)
+
+
+# ---------------------------------------------------------------------------
+# The attention-family archs (granite's GELU MLP and MQA, olmoe's MoE,
+# deepseek's MLA latent pages) through the engine on the card.
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["minitron-8b", "granite-34b", "olmoe-1b-7b", "deepseek-v3-671b"]
+
+
+def _arch_engine(name, device, params, use_kernel: bool):
+    """The smoke config under seda, three prompts of 5, 7 and 6 tokens
+    submitted (6 new tokens each)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch(name)
+    eng = SecureServingEngine(arch, arch.make_smoke_config(), params,
+                              scheme="seda", use_kernel=use_kernel,
+                              max_slots=2, page_tokens=4, pages_per_slot=4,
+                              device=device)
+    rng = np.random.default_rng(8)
+    rids = [eng.submit(prompt=list(map(int, rng.integers(1, 256, n))),
+                       max_new_tokens=6) for n in (5, 7, 6)]
+    return eng, rids
+
+
+def _arch_run(name, device, params, use_kernel: bool):
+    eng, rids = _arch_engine(name, device, params, use_kernel)
+    reset_launches()
+    done = eng.run()
+    pool = [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
+                              eng.pool.page_vns, eng.pool.pool_mac)]
+    return ([done[r].generated for r in rids], pool, dict(LAUNCHES),
+            eng.deferred_check())
+
+
+def _arch_params(name):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    cfg = get_arch(name).make_smoke_config()
+    return init_params(lm.lm_specs(cfg), 0, device="cpu")
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_arch_on_the_card_kernels_equal_plain_and_cpu(card, name):
+    params = _arch_params(name)
+    cpu = _arch_run(name, "cpu", params, True)
+    plain = _arch_run(name, card, params, False)
+    kern = _arch_run(name, card, params, True)
+    assert kern[0] == plain[0] == cpu[0]
+    assert all(torch.equal(a, b) for a, b in zip(kern[1], plain[1]))
+    assert kern[3] and plain[3]
+    for k in ("aes_ctr_keystream", "fused_crypt_mac",
+              "fused_crypt_mac_write"):
+        assert kern[2][k] > 0 and plain[2][k] == 0, k
+
+
+@pytest.mark.parametrize("leaf", [0, 1])
+def test_deepseek_latent_page_tamper_raises_on_the_card(card, leaf):
+    """A flipped byte of a live ``c_kv`` (leaf 0) or ``k_pe`` (leaf 1)
+    page fails the next tick."""
+    from repro_torch.serve.engine import IntegrityError
+    eng, _ = _arch_engine("deepseek-v3-671b", card,
+                          _arch_params("deepseek-v3-671b"), True)
+    eng.step()
+    eng.step()
+    eng.pool.cts[leaf][eng.slots[0].pages[0], 5] ^= 0x20
+    with pytest.raises(IntegrityError):
+        eng.step()
