@@ -140,12 +140,31 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              gives the tokens of a plain prefill + decode loop fed as the
              engine feeds it (prompt padded to its bucket; one slot for
              MoE, whose rows compete for expert capacity).
+16. ssm    — the Mamba-2 mixer, each model after the earlier one is
+             freed.  In float32 on the card: the chunked SSD scan equals
+             the sequential recurrence (L = 200, chunk 64); mamba2's
+             smoke dense loop gives the tokens of a loop that re-runs
+             the prefill over prompt + generated; jamba's smoke config
+             (seda, kernels, one slot) gives the plain CPU run's tokens,
+             and so do a contained bitflip on an attention page, a pool
+             small enough to preempt and a 2-shard cluster that migrates
+             a slot with its recurrent state.  mamba2-780m at full width
+             (48 layers, bf16) through the dense loop on the serve
+             phase's requests, no crypto kernel launched, its paged
+             engine refused with the reference's ``ValueError``;
+             jamba-v0.1-52b at full width cut to 24 of 32 layers (three
+             8-layer periods) through the archs phase's cell (seda
+             kernels/plain/off tokens and pools equal, B1-B3, a k and a
+             v page tamper, 4 tenants with B4-B6).  Both with a CUPTI
+             trace of 3 steady ticks and each Mamba decode stage's (and
+             MoE stage's) device ms, against the bytes a tick reads:
+             weights, and the recurrent state in and out.
 
 Each path whose launches are reported (serve, tenants, prefix, each
 containment of the faults phase, weights, the shards phase's first
-kernel runs, each archs config's runs) is driven with the counts set to
-0 just before it and read just after.  Then a ``{"kernels": [...]}``
-line and, last, the device line.
+kernel runs, each archs and ssm config's runs) is driven with the
+counts set to 0 just before it and read just after.  Then a
+``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -2306,6 +2325,13 @@ ATTN_QK_SCALE = 8.0
 # share of the tokens generated: the tokens would not depend on the KV.
 MIN_DISTINCT_SHARE = 0.5
 MOE_SPANS = ("_route", "_dispatch", "_experts", "_combine")
+# The ssm phase: jamba cut in depth to three of its four 8-layer periods
+# (76.9 GB of bf16 weights; four need 102.4 GB).
+JAMBA_LAYERS = 24
+MAMBA_SPANS = ("_in_proj", "_conv_step", "_ssm_step", "_out_proj")
+# The reference's refusal of an arch with no paged cache leaf.
+NO_PAGED_LEAVES = ("cache tree has no paged (KV/latent) leaves — the paged "
+                   "engine needs at least one attention or MLA layer")
 
 
 def _arch_config(name: str) -> tuple:
@@ -2320,6 +2346,11 @@ def _arch_config(name: str) -> tuple:
         cut = (f"n_layers {cfg.n_layers} -> {DEEPSEEK_LAYERS} (3 dense + 1 "
                "MoE, moe_start_layer 3, full width): 61 layers need ~1.3 TB")
         cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    if name == "jamba-v0.1-52b":
+        cut = (f"n_layers {cfg.n_layers} -> {JAMBA_LAYERS}, three 8-layer "
+               "periods, full width: 32 layers need 102.4 GB of weights, "
+               "24 need 76.9 GB")
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
     return arch, cfg, cut
 
 
@@ -2365,6 +2396,22 @@ def _arch_params(cfg, seed: int = 0):
     return walk(lm.lm_specs(cfg), ())
 
 
+def _state_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of recurrent (never paged) state a decode tick reads once
+    and writes once: each Mamba layer's SSM state and conv window."""
+    import math
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.serve import kv_pages as kvp
+    tree = lm.cache_specs(cfg, batch, max_len)
+    flags = zip(kvp.cache_leaves(tree), kvp.paged_flags(tree),
+                kvp.length_flags(tree))
+    return 2 * sum(math.prod(leaf.shape) * DTYPES[leaf.dtype].itemsize
+                   for leaf, paged, length in flags
+                   if not paged and not length)
+
+
 def _weight_read_bytes(cfg, params) -> int:
     """Bytes of weights one decode tick reads: every leaf (the reference
     runs every expert over its (E, C, d) buffer), less an untied
@@ -2375,58 +2422,86 @@ def _weight_read_bytes(cfg, params) -> int:
     return total
 
 
-class _MoESpans:
-    """While open, each MoE stage runs inside a profiler range
-    ``moe.<stage>`` (the stages are module functions, patched here)."""
+class _Spans:
+    """While open, each named stage function of a model module runs
+    inside a profiler range ``<module>.<stage>`` (the stages are module
+    functions, patched here and restored on exit)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
 
     def __enter__(self):
         from torch.profiler import record_function
-
-        from repro_torch.models import moe
-        self.saved = {n: getattr(moe, n) for n in MOE_SPANS}
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        tag = self.module.__name__.rsplit(".", 1)[-1]
 
         def wrap(name, fn):
             def inner(*args, **kwargs):
-                with record_function(f"moe.{name}"):
+                with record_function(f"{tag}.{name}"):
                     return fn(*args, **kwargs)
             return inner
 
         for name, fn in self.saved.items():
-            setattr(moe, name, wrap(name, fn))
+            setattr(self.module, name, wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import moe
         for name, fn in self.saved.items():
-            setattr(moe, name, fn)
+            setattr(self.module, name, fn)
         return False
 
 
-def _profile_arch(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
-    """The profile phase's tick breakdown, and for MoE each stage's
-    device ms per tick from a second trace with the stages annotated
-    (router, dispatch = argsort + rank + gather + scatter, the expert
-    GEMMs, combine = gather + un-sort + gate sum)."""
+def _stage_ms(step, cfg, n_ticks: int) -> dict:
+    """Each annotated stage's device ms per tick over ``n_ticks`` calls
+    of ``step``: MoE's (router, dispatch = argsort + rank + gather +
+    scatter, the expert GEMMs, combine = gather + un-sort + gate sum) and
+    the Mamba decode's (projection, conv window, SSM step, output
+    projection), for the configs that have them."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    out, eng = _profile_ticks(arch, cfg, params, prompts, "seda", True,
-                              n_ticks=n_ticks)
-    if cfg.ffn == "moe":
-        with _MoESpans(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+
+    from repro_torch.models import lm, mamba2, moe
+    kinds = set(lm.layout(cfg))
+    stages = {}
+    if any(k.ffn == "moe" for k in kinds):
+        stages["moe"] = (moe, MOE_SPANS)
+    if any(k.mixer == "mamba" for k in kinds):
+        stages["mamba2"] = (mamba2, MAMBA_SPANS)
+    if not stages:
+        return {}
+    with contextlib.ExitStack() as stack:
+        for module, names in stages.values():
+            stack.enter_context(_Spans(module, names))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(n_ticks):
-                eng.step()
+                step()
             torch.cuda.synchronize()
-        spans = {name: 0.0 for name in MOE_SPANS}
+    out = {}
+    for tag, (_, names) in stages.items():
+        spans = {name: 0.0 for name in names}
         for e in prof.events():
-            key = e.name[len("moe."):]
-            if e.name.startswith("moe.") and key in spans and \
+            key = e.name[len(tag) + 1:]
+            if e.name.startswith(f"{tag}.") and key in spans and \
                     e.device_type == DeviceType.CPU:
                 spans[key] += e.device_time_total / 1e3 / n_ticks
-        out["moe_ms_per_tick"] = spans
-        out["moe_dispatch_ms_per_tick"] = spans["_dispatch"] + \
-            spans["_combine"]
+        out[f"{tag}_ms_per_tick"] = spans
+    if "moe" in stages:
+        moe_ms = out["moe_ms_per_tick"]
+        out["moe_dispatch_ms_per_tick"] = (moe_ms["_dispatch"]
+                                           + moe_ms["_combine"])
+    return out
+
+
+def _profile_arch(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
+    """The profile phase's tick breakdown, and each MoE or Mamba stage's
+    device ms per tick from a second trace with the stages annotated."""
+    out, eng = _profile_ticks(arch, cfg, params, prompts, "seda", True,
+                              n_ticks=n_ticks)
+    out.update(_stage_ms(eng.step, cfg, n_ticks))
     return out
 
 
@@ -2491,7 +2566,8 @@ def _arch_tenants(arch, cfg, params, prompts, want) -> dict:
 def _arch_cell(name: str) -> dict:
     """One config at full width: seda with and without the kernels and
     ``off`` once each, the pools byte-equal, B1-B3 launching, the
-    deferred MAC, a traced tick; deepseek also tampered and tenanted."""
+    deferred MAC, a traced tick; deepseek and jamba also tampered and
+    tenanted."""
     import gc
 
     import numpy as np
@@ -2547,11 +2623,14 @@ def _arch_cell(name: str) -> dict:
                              "KV pages")
     del pools
     profile = _profile_arch(arch, cfg, params, prompts)
-    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    state_bytes = _state_bytes(cfg, SERVE["n_requests"],
+                               PAGES_PER_SLOT * SERVE["page_tokens"])
+    bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
     out = {"config": cfg.name, "cut": cut, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "init_s": init_s,
            "weight_read_gb": weight_bytes / 1e9,
-           "weight_read_bound_ms": bound_ms,
+           "state_read_write_gb": state_bytes / 1e9,
+           "read_bound_ms": bound_ms,
            "distinct_tokens": len(set(flat)),
            "first_request_tokens": tokens["seda_kernel"][0],
            "launches": {k: main["launches"][k] for k in SINGLE_KEY},
@@ -2563,7 +2642,9 @@ def _arch_cell(name: str) -> dict:
                                 for k, r in runs.items()},
            "profile": profile,
            "device_busy_over_bound": profile["device_busy_ms"] / bound_ms}
-    if name == "deepseek-v3-671b":         # c_kv is leaf 0, k_pe leaf 1
+    if name in ("deepseek-v3-671b", "jamba-v0.1-52b"):
+        # deepseek: c_kv is leaf 0, k_pe leaf 1; jamba: k, v of its
+        # attention layers.
         out["tamper"] = [phase_tamper(arch, cfg, params, leaf)
                          for leaf in (0, 1)]
         out["tenants"] = _arch_tenants(arch, cfg, params, prompts,
@@ -2625,6 +2706,289 @@ def phase_archs(results: dict) -> dict:
     return out
 
 
+def _ssd_f32() -> dict:
+    """On the card, the chunked SSD scan (L = 200 over chunks of 64, 8
+    heads over 2 groups) equals the sequential recurrence within atol
+    1e-4, the reference's own oracle tolerance."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import mamba2
+    rng = np.random.default_rng(0)
+    b, l, h, p, n, g = 2, 200, 8, 16, 32, 2
+
+    def normal(*shape):
+        return torch.tensor(rng.standard_normal(shape) * 0.5,
+                            dtype=torch.float32, device="cuda")
+
+    x, bb, cc = normal(b, l, h, p), normal(b, l, g, n), normal(b, l, g, n)
+    dt = torch.nn.functional.softplus(normal(b, l, h) * 2)
+    y, st = mamba2.ssd_chunked(x, bb, cc, dt, -dt * 0.3, chunk=64)
+    ry, rs = mamba2.ssd_reference(x, bb, cc, dt, -dt * 0.3)
+    err = max(float((y - ry).abs().max()), float((st - rs).abs().max()))
+    if y.shape != ry.shape or not err <= 1e-4:
+        raise AssertionError(f"ssd_chunked vs ssd_reference: max abs err "
+                             f"{err} over atol 1e-4")
+    return {"L": l, "chunk": 64, "max_abs_err": err, "atol": 1e-4}
+
+
+def _mamba2_loops_f32() -> dict:
+    """mamba2's smoke config (float32) on the card: the dense loop's
+    tokens equal those of a loop that re-runs the prefill over prompt +
+    generated at every step (the recurrence equals the chunked scan)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve.serve_step import (greedy_sample,
+                                              make_decode_step,
+                                              make_prefill_step)
+    arch = get_arch("mamba2-780m")
+    cfg = arch.make_smoke_config()
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    seq = torch.tensor(np.random.default_rng(4).integers(1, cfg.vocab, (2, 6)),
+                       device="cuda")
+    with torch.no_grad():
+        logits, caches = make_prefill_step(arch, cfg, 16)(
+            params, {"tokens": seq})
+        decode = make_decode_step(arch, cfg)
+        loop = []
+        for _ in range(8):
+            tok = greedy_sample(logits)
+            loop.append(tok)
+            logits, caches = decode(params, tok.long(), caches)
+        loop = torch.cat(loop, dim=1)
+        again = []
+        for i in range(loop.shape[1]):
+            logits, _ = lm.lm_prefill(cfg, params, {"tokens": seq}, 16)
+            again.append(greedy_sample(logits))
+            seq = torch.cat([seq, loop[:, i: i + 1].long()], dim=1)
+        again = torch.cat(again, dim=1)
+    if not torch.equal(loop, again):
+        raise AssertionError(f"mamba2 decode loop {loop.tolist()} != "
+                             f"re-prefill loop {again.tolist()}")
+    return {"config": cfg.name, "tokens": loop.tolist()}
+
+
+def _jamba_f32() -> dict:
+    """jamba's smoke config (float32) under seda with the kernels on the
+    card, one slot (MoE capacity couples a tick's rows, ROADMAP C): the
+    plain CPU run's tokens, and the same tokens with a contained bitflip
+    on an attention page, from a pool small enough to preempt, and
+    across a 2-shard cluster that migrates a slot with its recurrent
+    state mid-decode.  The last two need 2 slots a pool: the smoke
+    config's MoE capacity int(T * 2 / 4 * 2.0) = T never drops a row's
+    expert slot, so its rows do not couple."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params, tree_map
+    from repro_torch.serve.cluster import ClusterEngine
+    from repro_torch.serve.engine import SecureServingEngine
+    from repro_torch.serve.faults import Fault, FaultPlan
+    arch = get_arch("jamba-v0.1-52b")
+    cfg = arch.make_smoke_config()
+    moe = cfg.moe
+    if int(2 * moe.top_k / moe.n_experts * moe.capacity_factor) < 2:
+        raise AssertionError("smoke MoE capacity drops slots: rows couple")
+    params = init_params(lm.lm_specs(cfg),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(8)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
+               for n in (5, 7, 6)]
+    kw = dict(scheme="seda", use_kernel=True, page_tokens=4)
+
+    def serve(device, reqs, fault=None, **ekw):
+        eng = SecureServingEngine(arch, cfg, cpu_params if device == "cpu"
+                                  else params, device=device,
+                                  **{"max_slots": 1, "pages_per_slot": 8,
+                                     **kw, **ekw})
+        if fault:
+            FaultPlan([Fault(**fault)]).attach(eng)
+        rids = [eng.submit(prompt=p, max_new_tokens=n) for p, n in reqs]
+        eng.run()
+        return eng, [list(eng.requests[r].generated) for r in rids]
+
+    reqs = [(p, 6) for p in prompts]
+    _, want = serve("cpu", reqs)
+    eng, got = serve("cuda", reqs)
+    out = {"config": cfg.name, "tokens": want}
+    if got != want:
+        raise AssertionError(f"jamba smoke on the card {got} != CPU {want}")
+    eng, got = serve("cuda", reqs, fault=dict(tick=3, kind="bitflip", slot=0),
+                     fault_tolerance=True)
+    if got != want or not eng.quarantined:
+        raise AssertionError(f"contained bitflip: {got} != {want} "
+                             f"(quarantined {eng.quarantined})")
+    out["contained_preemptions"] = eng.stats["preemptions"]
+    eng, got = serve("cuda", reqs, max_slots=2, pages_per_slot=4, n_pages=5)
+    if got != want or eng.stats["preemptions"] <= 0:
+        raise AssertionError(f"preempting pool: {got} != {want} "
+                             f"({eng.stats['preemptions']} preemptions)")
+    out["preemptions"] = eng.stats["preemptions"]
+    long = [(p, n) for p, n in zip(prompts, (20, 2, 20))]
+    _, want_long = serve("cpu", long)
+    cl = ClusterEngine(arch, cfg, params, device="cuda", shards=2,
+                       max_slots=2, pages_per_slot=8, n_pages=8, **kw)
+    rids = [cl.submit(prompt=p, max_new_tokens=n) for p, n in long]
+    cl.run()
+    got = [list(cl.requests[r].generated) for r in rids]
+    if got != want_long or cl.stats["migrations"] <= 0 or \
+            cl.engine_stats["admitted"] != len(long):
+        raise AssertionError(f"2-shard cluster: {got} != {want_long} "
+                             f"({cl.stats['migrations']} migrations, "
+                             f"{cl.engine_stats['admitted']} admissions)")
+    out["migrations"] = cl.stats["migrations"]
+    return out
+
+
+def _dense_ticks(decode, params, tok, caches, n: int) -> tuple:
+    """``n`` steps of the dense loop from ``tok``: (last token, caches)."""
+    from repro_torch.serve.serve_step import greedy_sample
+    for _ in range(n):
+        logits, caches = decode(params, tok.long(), caches)
+        tok = greedy_sample(logits)
+    return tok, caches
+
+
+def _mamba2_cell(n_ticks: int = 3) -> dict:
+    """mamba2-780m at full width through the dense loop on the serve
+    cell's requests (no crypto kernel runs), its paged engine refused as
+    the reference refuses it, a CUPTI trace of ``n_ticks`` steady decode
+    steps and each decode stage's device ms."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve.engine import SecureServingEngine
+    from repro_torch.serve.serve_step import (greedy_sample,
+                                              make_decode_step,
+                                              make_prefill_step)
+    arch, cfg, _ = _arch_config("mamba2-780m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _arch_params(cfg)
+    weight_bytes = _weight_read_bytes(cfg, params)
+    max_len = SERVE["prompt_len"] + SERVE["new_tokens"]
+    state_bytes = _state_bytes(cfg, SERVE["n_requests"], max_len)
+    try:
+        SecureServingEngine(arch, cfg, params, scheme="seda", use_kernel=True,
+                            max_slots=SERVE["n_requests"],
+                            page_tokens=SERVE["page_tokens"],
+                            pages_per_slot=PAGES_PER_SLOT)
+    except ValueError as e:
+        if str(e) != NO_PAGED_LEAVES:
+            raise
+    else:
+        raise AssertionError("the paged engine took an arch with no paged "
+                             "leaf")
+    rng = np.random.default_rng(1)
+    prompts = torch.tensor(rng.integers(
+        1, cfg.vocab, (SERVE["n_requests"], SERVE["prompt_len"])),
+        device="cuda")
+    prefill = make_prefill_step(arch, cfg, max_len)
+    decode = make_decode_step(arch, cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()                   # the dense loop starts here
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts})
+        tok = greedy_sample(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits.float()).all())
+        out_toks = [tok]
+        t0 = time.perf_counter()
+        for _ in range(SERVE["new_tokens"] - 1):
+            tok, caches = _dense_ticks(decode, params, tok, caches, 1)
+            out_toks.append(tok)
+        toks = torch.cat(out_toks, dim=1).cpu()     # syncs the card
+        decode_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)          # ... and ends here
+        if any(launches.values()):
+            raise AssertionError(f"the dense loop ran crypto kernels: "
+                                 f"{launches}")
+        flat = toks.reshape(-1).tolist()
+        if not finite or toks.shape != (SERVE["n_requests"],
+                                        SERVE["new_tokens"]) or \
+                not all(0 <= t < cfg.vocab for t in flat):
+            raise AssertionError(f"mamba2: tokens {tuple(toks.shape)}, "
+                                 f"finite logits {finite}")
+        # Steady ticks: 2 warm, n unprofiled, n traced, n with the stages.
+        tok, caches = _dense_ticks(decode, params, tok, caches, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = _dense_ticks(decode, params, tok, caches, n_ticks)
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) / n_ticks * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tok, caches = _dense_ticks(decode, params, tok, caches, n_ticks)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_ticks * 1e3
+        state = [tok, caches]
+
+        def step():
+            state[0], state[1] = _dense_ticks(decode, params, state[0],
+                                              state[1], 1)
+
+        prof_out = {"tick_ms": tick_ms,
+                    **_device_breakdown(prof, wall, n_ticks, "tick"),
+                    **_stage_ms(step, cfg, n_ticks)}
+    del params, caches, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"config": cfg.name, "cut": None, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "paged_engine_refused": NO_PAGED_LEAVES,
+            "launches": launches, "weight_read_gb": weight_bytes / 1e9,
+            "state_read_write_gb": state_bytes / 1e9,
+            "read_bound_ms": bound_ms, "prefill_s": prefill_s,
+            "host_ms_per_tick_run": decode_s / (SERVE["new_tokens"] - 1)
+            * 1e3,
+            "tok_per_s": toks.numel() / (prefill_s + decode_s),
+            "distinct_tokens": len(set(flat)),
+            "first_request_tokens": toks[0].tolist(), "profile": prof_out,
+            "device_busy_over_bound": prof_out["device_busy_ms"] / bound_ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_ssm(results: dict) -> dict:
+    """The Mamba-2 mixer on the card: the float32 gates on the smoke
+    configs, mamba2-780m through the dense loop and jamba-v0.1-52b (24
+    of 32 layers) through the paged engine, at full width, each after
+    every earlier model is freed."""
+    import gc
+
+    import torch
+    results.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"allocated_gb_at_start": torch.cuda.memory_allocated() / 1e9,
+           "f32": {"ssd": _ssd_f32(), "mamba2": _mamba2_loops_f32(),
+                   "jamba": _jamba_f32()}}
+    out["mamba2-780m"] = _mamba2_cell()
+    out["jamba-v0.1-52b"] = _arch_cell("jamba-v0.1-52b")
+    for name in ("mamba2-780m", "jamba-v0.1-52b"):
+        print(f"[ssm] {name}: peak {out[name]['peak_mem_gb']:.2f} GB, "
+              f"device {out[name]['profile']['device_busy_ms']:.2f} ms/tick",
+              flush=True)
+    results["ssm_launches"] = out["jamba-v0.1-52b"]["launches"]
+    return out
+
+
 KERNEL_META = {
     "aes_ctr_keystream": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
                           "src/repro/kernels/aes_ctr/kernel.py:178"),
@@ -2680,6 +3044,7 @@ def main() -> int:
         ("shards", lambda: phase_shards(arch, cfg, results)),
         ("launch", lambda: phase_launch(results)),
         ("archs", lambda: phase_archs(results)),
+        ("ssm", lambda: phase_ssm(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

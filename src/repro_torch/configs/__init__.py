@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the attention-mixer LMs.
+"""Architecture registry of the port: the decoder-only LMs.
 
-Dense (minitron, smollm), the GELU-MLP MQA stack (granite), MoE (olmoe)
-and MLA + MoE (deepseek-v3).  The Mamba, vision and encoder-decoder
-archs are not ported yet (ROADMAP A6).
+Dense (minitron, smollm), the GELU-MLP MQA stack (granite), MoE (olmoe),
+MLA + MoE (deepseek-v3), the attention-free Mamba-2 stack (mamba2) and
+the Mamba + attention + MoE hybrid (jamba).  The vision and
+encoder-decoder archs are not ported yet (ROADMAP A6).
 
 ``get_arch(name)`` returns an :class:`ArchDef` with the published config
 (``make_config``) and the reduced smoke config the tests use.
@@ -14,6 +15,7 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.models.lm import LMConfig
+from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 
@@ -21,10 +23,6 @@ __all__ = ["ArchDef", "ARCHS", "get_arch", "NOT_PORTED"]
 
 # The reference's other archs, each with the ROADMAP item it waits for.
 NOT_PORTED = {
-    "mamba2-780m": "ROADMAP A6: the Mamba mixer and the engine's on-chip "
-                   "recurrent state",
-    "jamba-v0.1-52b": "ROADMAP A6: the Mamba mixer and the engine's on-chip "
-                      "recurrent state",
     "pixtral-12b": "ROADMAP A6/A7: the image projector (img_proj), with "
                    "training; the reference engine serves no images",
     "seamless-m4t-large-v2": "ROADMAP A6: the encoder-decoder family "
@@ -155,6 +153,55 @@ def _deepseek_v3_671b_smoke() -> LMConfig:
                                   capacity_factor=2.0))
 
 
+def _mamba2_780m() -> LMConfig:
+    # [ssm] 48L d_model=1536 (attention-free) vocab=50280, ssm_state=128;
+    # d_inner = 2 * d_model = 3072, head_dim 64 -> 48 SSD heads, conv 4.
+    return LMConfig(name="mamba2-780m", n_layers=48, d_model=1536,
+                    n_heads=0, n_kv=0, head_dim=1, d_ff=0, vocab=50280,
+                    mixer="mamba", ffn="none", tie_embeddings=True,
+                    ssd_chunk=512,
+                    mamba=Mamba2Config(d_model=1536, d_inner=3072,
+                                       head_dim=64, d_state=128, n_groups=1,
+                                       d_conv=4))
+
+
+def _mamba2_780m_smoke() -> LMConfig:
+    return LMConfig(name="mamba2-780m-smoke", n_layers=2, d_model=32,
+                    n_heads=0, n_kv=0, head_dim=1, d_ff=0, vocab=256,
+                    dtype="float32", mixer="mamba", ffn="none", ssd_chunk=16,
+                    mamba=Mamba2Config(d_model=32, d_inner=64, head_dim=16,
+                                       d_state=8, n_groups=1, d_conv=4))
+
+
+def _jamba_v01_52b() -> LMConfig:
+    # [hybrid] 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=65536,
+    # MoE 16 experts top-2 on every 2nd layer; period-8 blocks, attention
+    # at index 3 of each, Mamba elsewhere.  Jamba v0.1's Mamba-1 mixers
+    # are instantiated, as in the reference, as the SSD (Mamba-2) block
+    # with Jamba's state size 16.
+    return LMConfig(name="jamba-v0.1-52b", n_layers=32, d_model=4096,
+                    n_heads=32, n_kv=8, head_dim=128, d_ff=14336,
+                    vocab=65536, mixer="mamba", attn_every=8, attn_offset=3,
+                    ffn="moe", moe_every=2, moe_offset=1, tie_embeddings=True,
+                    mamba=Mamba2Config(d_model=4096, d_inner=8192,
+                                       head_dim=128, d_state=16, n_groups=1,
+                                       d_conv=4),
+                    moe=MoEConfig(n_experts=16, top_k=2, d_model=4096,
+                                  d_ff=14336, capacity_factor=1.25))
+
+
+def _jamba_v01_52b_smoke() -> LMConfig:
+    return LMConfig(name="jamba-v0.1-52b-smoke", n_layers=8, d_model=32,
+                    n_heads=4, n_kv=2, head_dim=8, d_ff=64, vocab=256,
+                    dtype="float32", mixer="mamba", attn_every=8,
+                    attn_offset=3, ffn="moe", moe_every=2, moe_offset=1,
+                    q_block=16, kv_block=16, ssd_chunk=8,
+                    mamba=Mamba2Config(d_model=32, d_inner=64, head_dim=16,
+                                       d_state=8, n_groups=1, d_conv=4),
+                    moe=MoEConfig(n_experts=4, top_k=2, d_model=32, d_ff=64,
+                                  capacity_factor=2.0))
+
+
 ARCHS = {a.name: a for a in (
     ArchDef("minitron-4b", "dense", "lm", _minitron_4b, _minitron_4b_smoke,
             "arXiv:2407.14679; hf"),
@@ -168,6 +215,10 @@ ARCHS = {a.name: a for a in (
             "arXiv:2409.02060; hf"),
     ArchDef("deepseek-v3-671b", "moe", "lm", _deepseek_v3_671b,
             _deepseek_v3_671b_smoke, "arXiv:2412.19437; hf"),
+    ArchDef("mamba2-780m", "ssm", "lm", _mamba2_780m, _mamba2_780m_smoke,
+            "arXiv:2405.21060; unverified"),
+    ArchDef("jamba-v0.1-52b", "hybrid", "lm", _jamba_v01_52b,
+            _jamba_v01_52b_smoke, "arXiv:2403.19887; hf"),
 )}
 
 

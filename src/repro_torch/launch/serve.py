@@ -16,15 +16,19 @@ cache::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
         --smoke --device cpu --engine simple --batch 4 --gen-len 8
 
-``--arch`` takes every attention-mixer LM of the reference: the dense
+``--arch`` takes every decoder-only LM of the reference: the dense
 minitron-4b/-8b and smollm-135m, granite-34b (GELU MLP, MQA),
-olmoe-1b-7b (MoE) and deepseek-v3-671b (MLA + MoE), with either engine::
+olmoe-1b-7b (MoE), deepseek-v3-671b (MLA + MoE) and jamba-v0.1-52b
+(Mamba + attention + MoE, its recurrent state beside the paged pool),
+with either engine::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --smoke --device cpu --engine paged --scheme seda
 
-The Mamba, vision and encoder-decoder archs exit with the ROADMAP item
-they wait for.
+mamba2-780m (attention-free) serves through ``--engine simple``; with
+``--engine paged`` it raises the reference's ``ValueError``: it has no
+KV cache to page.  The vision and encoder-decoder archs exit with the
+ROADMAP item they wait for.
 
 ``--tenants N`` registers N tenants and serves the batch round-robin
 across their sessions, each tenant's pages under its own (tenant,

@@ -1,9 +1,8 @@
 """Pre-norm residual blocks: (mixer, ffn) pairs.
 
-mixer: 'attn' (GQA/MQA + RoPE) | 'mla' (DeepSeek latent)
-ffn:   'dense' (SwiGLU or GELU MLP) | 'moe' (top-k routed)
-
-The Mamba mixer (and its 'none' FFN) is not ported yet and raises.
+mixer: 'attn' (GQA/MQA + RoPE) | 'mla' (DeepSeek latent) | 'mamba' (SSD)
+ffn:   'dense' (SwiGLU or GELU MLP) | 'moe' (top-k routed) | 'none'
+       (pure-mamba blocks)
 """
 
 from __future__ import annotations
@@ -13,15 +12,16 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import rms_norm, spec
+from repro_torch.models.layers import dense, rms_norm, spec
 
 __all__ = ["LayerKind", "block_specs", "block_prefill", "block_decode",
            "block_cache_specs"]
 
-MIXERS = ("attn", "mla")
-FFNS = ("dense", "moe")
+MIXERS = ("attn", "mla", "mamba")
+FFNS = ("dense", "moe", "none")
 
 
 class LayerKind(NamedTuple):
@@ -30,10 +30,6 @@ class LayerKind(NamedTuple):
 
 
 def _check(kind: LayerKind) -> None:
-    if kind.mixer == "mamba" or kind.ffn == "none":
-        raise NotImplementedError(
-            f"block kind {kind}: the Mamba mixer is not ported yet "
-            "(ROADMAP A6: mamba2-780m, then jamba-v0.1-52b)")
     if kind.mixer not in MIXERS or kind.ffn not in FFNS:
         raise ValueError(f"unknown block kind {kind}")
 
@@ -45,18 +41,23 @@ def block_specs(cfg, kind: LayerKind) -> dict:
         s["attn"] = attn_mod.attention_specs(cfg.d_model, cfg.n_heads,
                                              cfg.n_kv, cfg.head_dim,
                                              cfg.dtype)
-    else:
+    elif kind.mixer == "mla":
         s["mla"] = mla_mod.mla_specs(cfg.mla, cfg.dtype)
-    s["norm_ffn"] = spec((cfg.d_model,), "float32", init="ones")
+    else:
+        s["mamba"] = mamba_mod.mamba2_specs(cfg.mamba, cfg.dtype)
+    if kind.ffn != "none":
+        s["norm_ffn"] = spec((cfg.d_model,), "float32", init="ones")
     if kind.ffn == "dense":
         s["ffn"] = moe_mod.ffn_specs(cfg.d_model, cfg.d_ff, cfg.dtype,
                                      gated=cfg.gated_ffn)
-    else:
+    elif kind.ffn == "moe":
         s["moe"] = moe_mod.moe_specs(cfg.moe, cfg.dtype)
     return s
 
 
 def _apply_ffn(cfg, kind: LayerKind, params, x):
+    if kind.ffn == "none":
+        return x
     h = rms_norm(x, params["norm_ffn"])
     if kind.ffn == "dense":
         return x + moe_mod.dense_ffn(params["ffn"], h)
@@ -70,7 +71,10 @@ def block_cache_specs(cfg, kind: LayerKind, batch: int, max_len: int):
     if kind.mixer == "attn":
         return attn_mod.init_kv_cache_specs(batch, max_len, cfg.n_kv,
                                             cfg.head_dim, cfg.dtype)
-    return mla_mod.init_mla_cache_specs(cfg.mla, batch, max_len, cfg.dtype)
+    if kind.mixer == "mla":
+        return mla_mod.init_mla_cache_specs(cfg.mla, batch, max_len,
+                                            cfg.dtype)
+    return mamba_mod.init_mamba2_state_specs(cfg.mamba, batch, cfg.dtype)
 
 
 def _pad_to(x: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -92,7 +96,7 @@ def block_prefill(cfg, kind: LayerKind, params, x, positions, max_len: int):
                                          return_kv=True)
         cache = attn_mod.KVCache(_pad_to(k, max_len), _pad_to(v, max_len),
                                  length)
-    else:
+    elif kind.mixer == "mla":
         out = mla_mod.mla_attention(cfg.mla, params["mla"], h, positions,
                                     q_block=cfg.q_block,
                                     kv_block=cfg.kv_block)
@@ -100,6 +104,19 @@ def block_prefill(cfg, kind: LayerKind, params, x, positions, max_len: int):
                                                 positions)
         cache = mla_mod.MLACache(_pad_to(c_kv, max_len),
                                  _pad_to(k_pe, max_len), length)
+    else:
+        p = params["mamba"]
+        out, state = mamba_mod.mamba2_forward(cfg.mamba, p, h,
+                                              chunk=cfg.ssd_chunk,
+                                              return_state=True)
+        # The conv window is the last (d_conv - 1) conv inputs, taken as
+        # the reference takes it: a prompt shorter than d_conv - 1 keeps
+        # only its own rows (not zero-padded; ROADMAP C).  Only those rows
+        # of the xbc columns are projected.
+        di, gn = cfg.mamba.d_inner, cfg.mamba.n_groups * cfg.mamba.d_state
+        window = dense(h[:, -(cfg.mamba.d_conv - 1):],
+                       p["in_proj"][:, di: 2 * di + 2 * gn])
+        cache = mamba_mod.Mamba2State(state, window.contiguous(), length)
     return _apply_ffn(cfg, kind, params, x + out), cache
 
 
@@ -108,6 +125,9 @@ def block_decode(cfg, kind: LayerKind, params, x, cache):
     h = rms_norm(x, params["norm_mixer"])
     if kind.mixer == "attn":
         out, cache = attn_mod.decode_attention(params["attn"], h, cache)
-    else:
+    elif kind.mixer == "mla":
         out, cache = mla_mod.mla_decode(cfg.mla, params["mla"], h, cache)
+    else:
+        out, cache = mamba_mod.mamba2_decode(cfg.mamba, params["mamba"], h,
+                                             cache)
     return _apply_ffn(cfg, kind, params, x + out), cache

@@ -1,21 +1,26 @@
-"""Decoder-only LM: specs, prefill and decode (attention-mixer stacks).
+"""Decoder-only LM: specs, prefill and decode.
 
-Homogeneous stacks (minitron, granite, smollm, olmoe) are one segment;
-prefix-irregular ones (deepseek-v3: dense layers, then MoE) split into
-maximal uniform segments.  The reference scans one block body over
-per-segment stacked parameters; here a Python loop over the layer index
-does the same work.  The parameter tree keeps the reference layout::
+Homogeneous stacks (minitron, granite, smollm, olmoe, mamba2) are one
+segment; prefix-irregular ones (deepseek-v3: dense layers, then MoE)
+split into maximal uniform segments; periodic hybrids (jamba: attention
+every 8th mixer, MoE every 2nd FFN) are one segment whose period holds
+several block kinds, stacked per kind.  The reference scans one period
+of block bodies over per-segment stacked parameters; here a Python loop
+over the period index does the same work.  The parameter tree keeps the
+reference layout::
 
     {"embed": (vocab, d), "final_norm": (d,), ["lm_head": (d, vocab),]
      "segments": [[{"norm_mixer": (L, d), "attn": {"wq": (L, d, H, D), ...},
                     "norm_ffn": (L, d), "ffn": {"w_up": (L, d, F), ...}}]]}
 
-with ``"mla"`` in place of ``"attn"`` and ``"moe"`` in place of
-``"ffn"`` where the layer kind says so.  Caches are
+with ``"mla"`` or ``"mamba"`` in place of ``"attn"``, ``"moe"`` in place
+of ``"ffn"`` and no ``"norm_ffn"``/``"ffn"`` for ``ffn="none"``, where
+the layer kind says so.  Caches are
 ``[[KVCache(k (L, B, max_len, n_kv, D), v, length (L, ...))]]`` (or
-``MLACache(c_kv, k_pe, length)``), so a flat walk over them gives the
-reference's leaf order.  :class:`LM` holds such a tree as
-``nn.Parameter``s.
+``MLACache(c_kv, k_pe, length)``, or ``Mamba2State(ssm (L, B, H, P, N),
+conv (L, B, d_conv - 1, conv_dim), length)``), one entry per kind of the
+period, so a flat walk over them gives the reference's leaf order.
+:class:`LM` holds such a tree as ``nn.Parameter``s.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.layers import ParamSpec, rms_norm, spec, tree_map
+from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 
@@ -48,17 +54,21 @@ class LMConfig:
     head_dim: int = 0             # 0 -> d_model // n_heads
     dtype: str = "bfloat16"
     # Block pattern:
-    mixer: str = "attn"           # attn | mla
-    ffn: str = "dense"            # dense | moe
+    mixer: str = "attn"           # default mixer: attn | mla | mamba
+    attn_every: int = 0           # jamba: one attn per this many layers
+    attn_offset: int = 3
+    ffn: str = "dense"            # dense | moe | none
     moe_every: int = 1            # moe where idx % moe_every == moe_offset
     moe_offset: int = 0
     moe_start_layer: int = 0      # deepseek: dense layers before this index
+    mamba: Optional[Mamba2Config] = None
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     gated_ffn: bool = True        # SwiGLU; False = plain GELU MLP (granite)
     tie_embeddings: bool = True
     q_block: int = 512
     kv_block: int = 1024
+    ssd_chunk: int = 256
 
     def __post_init__(self):
         if not self.head_dim:
@@ -70,27 +80,39 @@ def layout(cfg: LMConfig) -> list:
     """Per-layer (mixer, ffn) kinds."""
     kinds = []
     for i in range(cfg.n_layers):
+        mixer = cfg.mixer
+        if cfg.attn_every and i % cfg.attn_every == cfg.attn_offset:
+            mixer = "attn"
         ffn = cfg.ffn
         if cfg.ffn == "moe":
             is_moe = (i >= cfg.moe_start_layer
                       and i % cfg.moe_every == cfg.moe_offset)
             ffn = "moe" if is_moe else "dense"
-        kinds.append(blk.LayerKind(cfg.mixer, ffn))
+        kinds.append(blk.LayerKind(mixer, ffn))
     return kinds
 
 
 def segments(cfg: LMConfig) -> list:
-    """[(period_kinds: tuple[LayerKind], steps: int), ...] — maximal
-    uniform runs (one run for a homogeneous stack; deepseek-v3 cut to 4
-    layers gives two: 3 x (mla, dense), then 1 x (mla, moe))."""
+    """[(period_kinds: tuple[LayerKind], steps: int), ...].
+
+    Maximal uniform runs while there are at most 4 of them (one for a
+    homogeneous stack; deepseek-v3 cut to 4 layers gives 3 x (mla, dense),
+    then 1 x (mla, moe)); otherwise, as for jamba, one segment of the
+    smallest period p <= 16 that divides the depth and repeats."""
     kinds = layout(cfg)
+    n = len(kinds)
     segs, i = [], 0
-    while i < len(kinds):
+    while i < n:
         j = i
-        while j < len(kinds) and kinds[j] == kinds[i]:
+        while j < n and kinds[j] == kinds[i]:
             j += 1
         segs.append(((kinds[i],), j - i))
         i = j
+    if len(segs) <= 4:
+        return segs
+    for p in range(2, min(16, n) + 1):
+        if n % p == 0 and all(kinds[i] == kinds[i % p] for i in range(n)):
+            return [(tuple(kinds[:p]), n // p)]
     return segs
 
 

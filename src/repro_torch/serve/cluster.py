@@ -654,9 +654,11 @@ class ClusterEngine(SubmitAPI):
                          vn_mod.kv_page_vn(ed._next_epoch()),
                          dst_ids < ed.spec.n_pages, dst_ctx)
         # Host state: the slot moves wholesale; its request stays
-        # "running" and nothing is recomputed.  (The port has no on-chip
-        # cache leaves to carry: it serves dense attention only.)
+        # "running" and nothing is recomputed.  Its recurrent-state column
+        # moves as it is, unprotected, as the reference moves it.
         dst_slot = ed.slots.index(None)
+        for dst_state, src_state in zip(ed.onchip, es.onchip):
+            dst_state[:, dst_slot] = src_state[:, slot_idx].to(ed.device)
         es.slots[slot_idx] = None
         es.page_table.clear(slot_idx)
         # Shared prefix pages stay with the source shard's cache (only

@@ -84,6 +84,16 @@ preempted request to the cluster instead of the local queue; and its
 pool updates, each with its pool-MAC delta, reach the cluster's
 root-MAC mirrors through the pool listeners.  With ``n_shards > 1`` its
 snapshot and Prometheus text carry a ``shard`` label.
+
+**Recurrent state.**  A hybrid arch (jamba) also keeps each Mamba
+layer's SSM state and conv window per slot.  That state is never paged:
+it stays in device tensors beside the pool, as the reference keeps it
+"on-chip" (unencrypted and unMACed in both packages; ROADMAP C).
+Admission writes a slot's column from its prefill, each decode
+overwrites only the active slots' columns, and prefill runs at the exact
+prompt length (pad tokens would enter the recurrence).  An arch with no
+paged leaf at all (mamba2) is refused with the reference's
+``ValueError``, and so is ``prefix_cache`` for a hybrid one.
 """
 
 from __future__ import annotations
@@ -266,6 +276,20 @@ def _bucket_len(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _set_column(state: torch.Tensor, slot: int, col: torch.Tensor) -> None:
+    """``state[:, slot] = col`` with the reference's broadcasting: a
+    column of size 1 along an axis fills it (a prompt shorter than the
+    conv window), any other mismatch raises ``ValueError`` as
+    ``jnp``'s ``.at[].set`` does."""
+    dst = state[:, slot]
+    if col.dim() != dst.dim() or any(
+            a not in (1, b) for a, b in zip(col.shape, dst.shape)):
+        raise ValueError(f"Incompatible shapes for broadcasting: "
+                         f"{tuple(col.shape)} and requested shape "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(col)
+
+
 class SecureServingEngine(SubmitAPI):
     """Batched secure decoding with paged, MAC-protected KV residency.
 
@@ -292,7 +316,9 @@ class SecureServingEngine(SubmitAPI):
     :class:`repro_torch.serve.kv_pages.PrefixCache` of at most
     ``prefix_cache_pages`` pages (default a quarter of the pool).
 
-    ``eos_id`` ends a request at that token; ``verify_every_step=False``
+    Each prefill is padded to a power-of-two length unless the arch
+    keeps recurrent state (``prefill_buckets``).  ``eos_id`` ends a
+    request at that token; ``verify_every_step=False``
     folds the decode verdicts on the device and checks them once, at
     the end of :meth:`run`.  ``fault_tolerance``, ``trace`` and
     ``audit``: see the module docstring.
@@ -363,10 +389,8 @@ class SecureServingEngine(SubmitAPI):
         self.paged_idx = [i for i, f in enumerate(paged) if f]
         self.len_leaves = [(i, flat[i].shape[0])
                            for i, f in enumerate(lengths) if f]
-        if any(not paged[i] and not lengths[i] for i in range(len(flat))):
-            raise NotImplementedError("on-chip recurrent cache state is not "
-                                      "ported (attention caches only; "
-                                      "ROADMAP A6)")
+        self.onchip_idx = [i for i in range(len(flat))
+                           if not paged[i] and not lengths[i]]
         self.n_leaves = len(flat)
         self.spec = kvp.build_page_spec(
             self._cache_tree, scheme=scheme, page_tokens=page_tokens,
@@ -376,6 +400,11 @@ class SecureServingEngine(SubmitAPI):
         self.page_io = kvp.PageIO(self.spec, self.keys)
         self.prefix_cache = None
         if prefix_cache:
+            if self.onchip_idx:
+                raise ValueError(
+                    "prefix_cache is unavailable for archs with recurrent "
+                    "on-chip state (Mamba SSM/conv): the skipped prefill's "
+                    "state cannot be reconstructed from cached KV pages")
             cap = (prefix_cache_pages if prefix_cache_pages is not None
                    else max(1, self.n_pages // 4))
             self.prefix_cache = kvp.PrefixCache(page_tokens, cap)
@@ -384,8 +413,18 @@ class SecureServingEngine(SubmitAPI):
                        else multilevel.SGX_LIKE if cfg_s.emulate_tree
                        else multilevel.MGX_LIKE)
 
+        # Length bucketing is safe when every cache leaf is paged (reads
+        # zero positions >= length) or a length mirror; recurrent state
+        # would absorb the pad tokens, so those archs prefill at exact
+        # length.
+        self.prefill_buckets = not self.onchip_idx
+
         self._pool_listeners: list = []
         self.pool = kvp.init_pool(self.spec, self.device)
+        self.onchip = [torch.zeros(flat[i].shape,
+                                   dtype=kvp._torch_dtype(flat[i].dtype),
+                                   device=self.device)
+                       for i in self.onchip_idx]
         # Crossings write the pool in place: every write is a pool update.
         self.page_io.write_listeners.append(
             lambda pool, delta: self._notify_pool(pool, pool, delta))
@@ -612,6 +651,8 @@ class SecureServingEngine(SubmitAPI):
         for idx, steps in self.len_leaves:
             leaves[idx] = lengths.to(torch.int32)[None, :].expand(
                 steps, self.max_slots)
+        for j, idx in enumerate(self.onchip_idx):
+            leaves[idx] = self.onchip[j]
         return kvp.cache_unflatten(self._cache_tree, leaves)
 
     def _decode_fn_for(self, bucket: int, uniform: bool = False):
@@ -628,7 +669,7 @@ class SecureServingEngine(SubmitAPI):
         cfg, io = self.cfg, self.page_io
 
         def decode_fn(page_table, lengths, active, tokens, epoch,
-                      read_ctx=None, write_ctx=None):
+                      read_ctx=None, write_ctx=None, slot_ids=None):
             dense, ok = io.read(self.pool, page_table, lengths, read_ctx,
                                 uniform)
             caches = self._merge_cache_leaves(dense, lengths)
@@ -640,14 +681,21 @@ class SecureServingEngine(SubmitAPI):
                            [new_leaves[i] for i in self.paged_idx], lengths,
                            active, vn_mod.kv_page_vn(epoch), write_ctx,
                            uniform)
+            # Recurrent state: only the active slots' columns advance.
+            for j, idx in enumerate(self.onchip_idx):
+                self.onchip[j].index_copy_(
+                    1, slot_ids, new_leaves[idx].index_select(1, slot_ids))
             return tok, ok
 
         return decode_fn
 
     def _prefill(self, seq: list):
-        """Run (bucketed) prefill for one request's token sequence."""
+        """Run (bucketed) prefill for one request's token sequence:
+        (token, paged leaves, on-chip leaves)."""
         lp = len(seq)
-        padded = seq + [0] * (_bucket_len(lp, self.max_len) - lp)
+        padded = seq
+        if self.prefill_buckets:
+            padded = seq + [0] * (_bucket_len(lp, self.max_len) - lp)
         if len(padded) not in self._prefill_shapes:
             self._prefill_shapes.add(len(padded))
             self.stats["prefill_compiles"] += 1
@@ -656,7 +704,8 @@ class SecureServingEngine(SubmitAPI):
                                            {"tokens": tokens}, self.max_len,
                                            last_pos=lp - 1)
         leaves = kvp.cache_leaves(caches)
-        return greedy_sample(logits), [leaves[i] for i in self.paged_idx]
+        return (greedy_sample(logits), [leaves[i] for i in self.paged_idx],
+                [leaves[i] for i in self.onchip_idx])
 
     # -- public API ---------------------------------------------------------
 
@@ -1138,7 +1187,7 @@ class SecureServingEngine(SubmitAPI):
         n_alloc = self._admission_pages(req)
         slot_idx = self.slots.index(None)
         pages = [self.free_pages.pop() for _ in range(n_alloc)]
-        tok, paged_leaves = self._prefill(seq)
+        tok, paged_leaves, onchip_leaves = self._prefill(seq)
         n_write = _ceil_div(len(seq), self.page_tokens)
         page_ids = np.full((self.pages_per_slot,), self.spec.scratch_page,
                            np.int64)
@@ -1157,6 +1206,8 @@ class SecureServingEngine(SubmitAPI):
         self.page_io.write_prefill(
             self.pool, torch.as_tensor(page_ids, device=self.device),
             paged_leaves, n_write, vn_mod.kv_page_vn(self._next_epoch()), ctx)
+        for j, leaf in enumerate(onchip_leaves):
+            _set_column(self.onchip[j], slot_idx, leaf[:, 0])
         self._admit_seq += 1
         self.stats["admitted"] += 1
         slot = _Slot(req, length=len(seq), pages=pages,
@@ -1647,7 +1698,10 @@ class SecureServingEngine(SubmitAPI):
                 torch.as_tensor(lengths, device=dev),
                 torch.as_tensor(active, device=dev),
                 torch.as_tensor(tokens, device=dev), self._next_epoch()]
-        uniform = False
+        uniform, kw = False, {}
+        if self.onchip_idx:
+            kw["slot_ids"] = torch.as_tensor(active_idx, dtype=torch.int64,
+                                             device=dev)
         if self.registry is not None:
             (key_idx, owners, key_epochs, cur_key_idx, cur_epochs), \
                 uniform = self._tenant_decode_args(active_idx, bucket)
@@ -1670,7 +1724,7 @@ class SecureServingEngine(SubmitAPI):
             self.stats["fused_write_ticks"] += 1
         self.stats["decode_page_reads"] += len(active_idx) * bucket
         self._bucket_hist.observe(bucket)
-        toks, ok = decode_fn(*args)
+        toks, ok = decode_fn(*args, **kw)
         self.stats["decode_steps"] += 1
         return toks, ok
 

@@ -320,7 +320,9 @@ def build_page_spec(cache_tree: Any, *, scheme: str, page_tokens: int,
         cursor += (n_pages + 1) * page_bytes
         base_layer += steps
     if not specs:
-        raise ValueError("cache tree has no paged (KV) leaves")
+        raise ValueError("cache tree has no paged (KV/latent) leaves — "
+                         "the paged engine needs at least one attention "
+                         "or MLA layer")
     return PageSpec(tuple(specs), page_tokens, max_len // page_tokens,
                     n_pages, max_slots, max_len, scheme, use_kernel, shard,
                     n_shards)

@@ -19,7 +19,8 @@ reference's smoke configs.
   on prompts whose lengths are not powers of two; olmoe also with a pool
   small enough to preempt, deepseek also under 2 rotating tenants.
 * The launcher: ``--arch olmoe-1b-7b --smoke`` through both engines;
-  the archs not ported exit naming their ROADMAP item.
+  the archs not ported exit naming their ROADMAP item, and mamba2's
+  paged engine raises the reference's ``ValueError``.
 """
 
 import dataclasses
@@ -39,7 +40,7 @@ from repro.serve import kv_pages as j_kvp
 from repro.serve.engine import SecureServingEngine as JEngine
 from repro.tenancy import KeyHierarchy as JHierarchy
 from repro.tenancy import TenantRegistry as JRegistry
-from repro_torch.configs import get_arch
+from repro_torch.configs import NOT_PORTED, get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import blocks, lm, mla, moe
 from repro_torch.serve import kv_pages as kvp
@@ -141,13 +142,16 @@ def test_deepseek_cut_to_four_layers_keeps_the_dense_prefix():
 
 
 def test_mamba_blocks_and_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        blocks.block_specs(get_arch("minitron-8b").make_smoke_config(),
-                           blocks.LayerKind("mamba", "dense"))
-    for name in ("mamba2-780m", "jamba-v0.1-52b", "pixtral-12b",
-                 "seamless-m4t-large-v2"):
+    """A mamba block builds; only the vision and encoder-decoder archs
+    are still refused."""
+    cfg = get_arch("mamba2-780m").make_smoke_config()
+    specs = blocks.block_specs(cfg, blocks.LayerKind("mamba", "none"))
+    assert set(specs) == {"norm_mixer", "mamba"}
+    assert specs["mamba"]["in_proj"].shape == (32, cfg.mamba.proj_dim)
+    for name in ("pixtral-12b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(name)
+    assert set(NOT_PORTED) == {"pixtral-12b", "seamless-m4t-large-v2"}
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +406,12 @@ def test_launcher_serves_olmoe_through_both_engines():
     assert paged["tokens"].shape == simple["tokens"].shape == (3, 4)
     assert paged["deferred_mac_ok"] is True
     assert paged["stats"]["fused_write_ticks"] > 0
-    for name in ("mamba2-780m", "pixtral-12b"):
+    for name in ("pixtral-12b", "seamless-m4t-large-v2"):
         with pytest.raises(SystemExit, match="ROADMAP A6"):
             launch.main(["--arch", name, "--smoke", "--device", "cpu"])
+    # mamba2 has no KV cache to page: the reference's ValueError.
+    with pytest.raises(ValueError, match=r"no paged \(KV/latent\) leaves "
+                       "— the paged engine needs at least one attention "
+                       "or MLA layer"):
+        launch.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                     "--engine", "paged"])

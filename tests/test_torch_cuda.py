@@ -16,7 +16,10 @@ migration's plaintext hops between the devices.  Each attention-family
 smoke config (granite, olmoe, deepseek, minitron-8b) served on the card
 with the kernels gives the plain and the CPU tokens, its pools
 byte-equal with the kernels on and off; a flipped byte of a deepseek
-latent page (c_kv or k_pe) raises.
+latent page (c_kv or k_pe) raises.  The chunked SSD scan on the card
+equals the sequential recurrence, and jamba's smoke config (attention
+pages beside its Mamba state) gives the CPU's tokens, its writes on the
+fused kernel.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -747,3 +750,46 @@ def test_deepseek_latent_page_tamper_raises_on_the_card(card, leaf):
     eng.pool.cts[leaf][eng.slots[0].pages[0], 5] ^= 0x20
     with pytest.raises(IntegrityError):
         eng.step()
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 mixer and jamba's recurrent state on the card.
+# ---------------------------------------------------------------------------
+
+
+def test_ssd_chunked_on_the_card_equals_sequential(card):
+    """L = 200 over chunks of 64 (padded to 256), 8 heads over 2 groups:
+    the chunked scan equals the sequential recurrence within atol 1e-4
+    (the reference's own oracle tolerance).  The check is the one the
+    card smoke run makes (``chip_smoke._ssd_f32``)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = chip_smoke._ssd_f32()
+    assert out["max_abs_err"] <= out["atol"] == 1e-4
+
+
+def test_jamba_on_the_card_kernels_equal_plain_and_cpu(card):
+    """jamba's smoke config (float32): the card's tokens, with the kernels
+    and without, equal the CPU's; its pools are byte-equal with the
+    kernels on and off, and its dirty writes go through the fused
+    kernel."""
+    name = "jamba-v0.1-52b"
+    params = _arch_params(name)
+    cpu = _arch_run(name, "cpu", params, True)
+    plain = _arch_run(name, card, params, False)
+    eng, rids = _arch_engine(name, card, params, True)
+    reset_launches()
+    done = eng.run()
+    kern_tokens = [done[r].generated for r in rids]
+    assert kern_tokens == plain[0] == cpu[0]
+    pool = [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
+                              eng.pool.page_vns, eng.pool.pool_mac)]
+    assert all(torch.equal(a, b) for a, b in zip(pool, plain[1]))
+    assert eng.stats["fused_write_ticks"] > 0 and eng.deferred_check()
+    assert not eng.prefill_buckets and len(eng.onchip) == 14
+    for k in ("aes_ctr_keystream", "fused_crypt_mac",
+              "fused_crypt_mac_write"):
+        assert LAUNCHES[k] > 0 and plain[2][k] == 0, k
