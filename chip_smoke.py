@@ -159,12 +159,33 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              trace of 3 steady ticks and each Mamba decode stage's (and
              MoE stage's) device ms, against the bytes a tick reads:
              weights, and the recurrent state in and out.
+17. train  — secure training, each model after the earlier one is freed.
+             In float32: the smoke configs of smollm, pixtral (image
+             prefix), seamless, deepseek and jamba on the card give the
+             CPU port's loss and every gradient within 1e-4 (relative to
+             the leaf's largest), and after one AdamW step its loss and
+             params; seamless's greedy decode tokens equal the CPU's.
+             seamless-m4t-large-v2 at full width and depth (24 + 24
+             layers, bf16, remat) through ``repro_torch.launch.train.
+             main`` at the launcher's defaults (global batch 8, 256
+             target and 128 source tokens), 6 steps under ``seda`` and 6
+             under ``off``: each step's wall ms, loss and B1/B7/B8
+             launches (4/2/2 a leaf on every seda step), CUPTI traces
+             of a 7th step (device busy, idle share, launches) and an 8th
+             (the device ms of protect, unprotect and the AdamW update),
+             peak memory; every loss finite, every entry check passed, the
+             first losses bitwise equal and the later ones within 1e-3;
+             a flipped ciphertext byte makes the next secure step report
+             ``integrity_ok`` false.  Then seamless's decoder at full
+             width through the serve steps: 8 requests over 1,024
+             encoder frames, 64-token prompts, 16 new tokens (tok/s,
+             peak memory, share of distinct tokens).
 
 Each path whose launches are reported (serve, tenants, prefix, each
 containment of the faults phase, weights, the shards phase's first
-kernel runs, each archs and ssm config's runs) is driven with the
-counts set to 0 just before it and read just after.  Then a
-``{"kernels": [...]}`` line and, last, the device line.
+kernel runs, each archs and ssm config's runs, each train step) is
+driven with the counts set to 0 just before it and read just after.
+Then a ``{"kernels": [...]}`` line and, last, the device line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
@@ -178,6 +199,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import json  # noqa: E402
+import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -2354,13 +2376,14 @@ def _arch_config(name: str) -> tuple:
     return arch, cfg, cut
 
 
-def _arch_params(cfg, seed: int = 0):
+def _arch_params(cfg, seed: int = 0, specs=None):
     """Random full-width weights from a seed, drawn on the card straight
     in each leaf's dtype (no float32 temporary: granite's stacked
     ``w_up`` alone holds 13.3 G elements), at one layer's fan-in as
     :func:`_full_params` rescales to, and at one expert's for the routed
     experts' stacked (E, d, f) leaves; the attn mixer's wq and wk at
-    ``ATTN_QK_SCALE`` times that."""
+    ``ATTN_QK_SCALE`` times that.  ``specs`` defaults to the LM's; an
+    encoder-decoder's stacks are ``encoder`` and ``decoder``."""
     import math
 
     import torch
@@ -2377,7 +2400,8 @@ def _arch_params(cfg, seed: int = 0):
             return t.zero_()
         if s.init == "embed":
             return t.normal_(0.0, 0.02, generator=gen)
-        skip = int(path[0] == "segments")                 # the layer axis
+        # The stacked layer axis, and the expert axis of routed experts.
+        skip = int(path[0] in ("segments", "encoder", "decoder"))
         skip += int(len(path) > 1 and path[-2] == "moe"
                     and path[-1] in ("w_gate", "w_up", "w_down"))
         fan_in = math.prod(s.shape[skip:-1])
@@ -2393,7 +2417,7 @@ def _arch_params(cfg, seed: int = 0):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return [walk(v, path + (i,)) for i, v in enumerate(node)]
 
-    return walk(lm.lm_specs(cfg), ())
+    return walk(lm.lm_specs(cfg) if specs is None else specs, ())
 
 
 def _state_bytes(cfg, batch: int, max_len: int) -> int:
@@ -2989,6 +3013,354 @@ def phase_ssm(results: dict) -> dict:
     return out
 
 
+# The train phase: seamless-m4t-large-v2 at its published width and depth
+# through the training launcher at its own defaults (global batch 8,
+# seq_len 256, src_len 128), then its decoder served at full width.
+TRAIN_ARCH = "seamless-m4t-large-v2"
+TRAIN_STEPS = 6
+TRAIN_LOSS_RTOL = 1e-3       # steps after the first (atomics in backward)
+TRAIN_SMOKE_ARCHS = ("smollm-135m", "pixtral-12b", "seamless-m4t-large-v2",
+                     "deepseek-v3-671b", "jamba-v0.1-52b")
+F32_RTOL = 1e-4
+# One float32 AdamW step moves a param by at most lr x warmup(1/100) x
+# (|step| <= ~1): where a tiny gradient's sign differs between the card
+# and the CPU the two updates differ by at most twice that.
+F32_STEP_ATOL = 1e-5
+STEP_SPANS = ("protect", "unprotect")
+
+
+class _TrainRecorder:
+    """While open, the step factories the training launcher imported
+    (``make_train_step``, ``make_secure_train_step``) return steps that
+    record each call: its wall ms (the card synced before and after),
+    loss, entry check and the crypto kernels' launches (counts set to 0
+    just before the step, read just after); the last call's step, outputs,
+    batch and index are kept to drive it once more."""
+
+    NAMES = ("make_train_step", "make_secure_train_step")
+
+    def __enter__(self):
+        from repro_torch.launch import train as launcher
+        self.launcher, self.steps, self.last = launcher, [], None
+        self.saved = {n: getattr(launcher, n) for n in self.NAMES}
+        for name, build in self.saved.items():
+            setattr(launcher, name, self._wrap(build))
+        return self
+
+    def __exit__(self, *exc):
+        for name, build in self.saved.items():
+            setattr(self.launcher, name, build)
+        return False
+
+    def _wrap(self, build):
+        import torch
+
+        from repro_torch.kernels import LAUNCHES, reset_launches
+
+        def make(*args, **kwargs):
+            step = build(*args, **kwargs)
+
+            def recorded(*inputs):
+                torch.cuda.synchronize()
+                reset_launches()             # one step's path starts here
+                t0 = time.perf_counter()
+                out = step(*inputs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = {k: LAUNCHES[k] for k in WEIGHTS_KEY}  # ends
+                metrics = out[-1]
+                self.steps.append({
+                    "ms": ms, "loss": float(metrics["loss"]),
+                    "integrity_ok": bool(metrics.get("integrity_ok", True)),
+                    "launches": launches})
+                self.last = (step, out, inputs[2:])
+                return out
+            return recorded
+        return make
+
+
+def _drive(step, state, opt, batch, idx):
+    """One call of a recorded train step (``idx`` None for ``off``)."""
+    return step(state, opt, batch, *(() if idx is None else (idx,)))
+
+
+def _train_step_profile(step, state, opt, batch, idx) -> tuple:
+    """Two more steps, each under a CUPTI trace: the first gives device
+    busy, idle share and launches; the second, with ``protect``,
+    ``unprotect`` and the AdamW update annotated (the annotations would
+    count as device time in the first), each one's device ms.  Returns
+    ``(profile, (state, opt))``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.secure_exec import SecureExecutor
+    from repro_torch.train import train_step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (state, opt, _), wall = _timed(
+            lambda: _drive(step, state, opt, batch, idx))
+    out = _device_breakdown(prof, wall, 1, "step")
+    with _Spans(SecureExecutor, STEP_SPANS), \
+            _Spans(train_step, ("adamw_update",)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, opt, _ = _drive(step, state, opt, batch,
+                                   None if idx is None else idx + 1)
+    spans = {f"{tag}.{name}": 0.0 for tag, names in (
+        ("SecureExecutor", STEP_SPANS), ("train_step", ("adamw_update",)))
+        for name in names}
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            spans[e.name] += e.device_time_total / 1e3
+    out["span_device_ms"] = spans
+    return out, (state, opt)
+
+
+def _train_cell(scheme: str) -> dict:
+    """seamless at full width through ``repro_torch.launch.train.main``
+    under ``scheme`` for ``TRAIN_STEPS`` steps; then two steps traced
+    and, for seda, one step from a state with a flipped ciphertext
+    byte."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.core.layout import tree_flatten
+    from repro_torch.launch import train as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", TRAIN_ARCH, "--scheme", scheme, "--steps",
+            str(TRAIN_STEPS), "--log-every", "1"]
+    with _TrainRecorder() as rec:
+        t0 = time.perf_counter()
+        ret = launcher.main(argv)
+        run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [s["loss"] for s in rec.steps]
+    if ret["steps"] != TRAIN_STEPS or ret["first_loss"] != losses[0] or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{scheme}: launcher returned {ret}, losses "
+                             f"{losses}")
+    step, (state, opt, _), (batch, *idx) = rec.last
+    rec.last = None
+    idx = idx[0] + 1 if idx else None
+    profile_out, (state, opt) = _train_step_profile(step, state, opt, batch,
+                                                    idx)
+    out = {"argv": argv, "return": ret, "run_s": run_s, "losses": losses,
+           "step_ms": [s["ms"] for s in rec.steps],
+           "step_ms_median_2_6": statistics.median(
+               s["ms"] for s in rec.steps[1:]),
+           "launches_per_step": [s["launches"] for s in rec.steps],
+           "integrity_ok": [s["integrity_ok"] for s in rec.steps],
+           "profile": profile_out, "peak_mem_gb": peak}
+    if scheme == "off":
+        out["params_gb"] = sum(t.numel() * t.element_size()
+                               for t in tree_flatten(state)[0]) / 1e9
+    else:
+        n_leaves = len(state.ciphertexts)
+        want = {"aes_ctr_keystream": 4 * n_leaves, "otp_xor": 2 * n_leaves,
+                "nh_hash_kernel_call": 2 * n_leaves}
+        bad = [s["launches"] for s in rec.steps if s["launches"] != want]
+        if bad or not all(out["integrity_ok"]):
+            raise AssertionError(f"seda steps: launches {bad} (want "
+                                 f"{want}), checks {out['integrity_ok']}")
+        ct = state.ciphertexts[n_leaves // 2]
+        ct[ct.numel() // 2] ^= 0x01
+        _, _, metrics = step(state, opt, batch, idx + 2)
+        out["tampered_step_integrity_ok"] = bool(metrics["integrity_ok"])
+        if out["tampered_step_integrity_ok"]:
+            raise AssertionError("a flipped ciphertext byte passed the "
+                                 "secure step's entry check")
+        out.update(leaves=n_leaves, launches_want=want,
+                   ciphertext_gb=sum(c.numel() for c in state.ciphertexts)
+                   / 1e9)
+    del state, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_smoke_f32(name: str) -> dict:
+    """The smoke config (float32) on the card against the CPU port on the
+    same weights and batch: loss and every leaf's gradient within
+    ``F32_RTOL`` (of the leaf's largest), then one train step each (the
+    loss within ``F32_RTOL``, params within ``F32_STEP_ATOL``); seamless
+    also decodes the CPU's greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.layout import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import build
+    from repro_torch.models.layers import init_params, tree_map
+    from repro_torch.serve.serve_step import (greedy_sample,
+                                              make_decode_step,
+                                              make_prefill_step)
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import (make_loss_fn, make_train_step,
+                                              value_and_grad)
+    arch, cfg, specs = build(name, smoke=True)
+    cpu = init_params(specs, 0, device="cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    n_patches = getattr(cfg, "n_image_patches", 0)
+    data = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2,
+                      kind=("encdec" if arch.kind == "encdec"
+                            else "vlm" if n_patches else "lm"),
+                      n_image_patches=n_patches,
+                      d_vision=getattr(cfg, "d_vision", 0),
+                      d_model=cfg.d_model, src_len=16)
+    batches = {d: make_batch(data, 0, device=d) for d in ("cpu", "cuda")}
+    loss_fn = make_loss_fn(arch, cfg)
+    (loss_c, _), g_c = value_and_grad(loss_fn, cpu, batches["cpu"])
+    (loss_g, _), g_g = value_and_grad(loss_fn, card, batches["cuda"])
+
+    def worst(got, want, relative: bool) -> float:
+        out = 0.0
+        for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                        strict=True):
+            err = float((a.cpu().float() - b.float()).abs().max())
+            scale = max(float(b.abs().max()), 1e-30) if relative else 1.0
+            out = max(out, err / scale)
+        return out
+
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = worst(g_g, g_c, True)
+    ocfg = AdamWConfig()
+    step = make_train_step(arch, cfg, ocfg)
+    p_c, _, m_c = step(cpu, init_opt_state(cpu, ocfg), batches["cpu"])
+    p_g, _, m_g = step(card, init_opt_state(card, ocfg), batches["cuda"])
+    step_loss_err = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(
+        float(m_c["loss"]))
+    param_err = worst(p_g, p_c, False)
+    out = {"config": cfg.name, "loss": float(loss_g),
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "step_loss_rel_err": step_loss_err, "step_param_abs_err": param_err}
+    if arch.kind == "encdec":
+        rng = np.random.default_rng(2)
+        src = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+        tgt = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
+        prefill = make_prefill_step(arch, cfg, 12)
+        decode = make_decode_step(arch, cfg)
+        toks = {}
+        with torch.no_grad():
+            for d, params in (("cpu", cpu), ("cuda", card)):
+                logits, caches = prefill(params, {
+                    "src_embeds": torch.from_numpy(src).to(d),
+                    "tgt_tokens": torch.from_numpy(tgt).to(d)})
+                tok, seq = greedy_sample(logits), []
+                for _ in range(6):
+                    seq.append(tok.cpu())
+                    logits, caches = decode(params, tok, caches)
+                    tok = greedy_sample(logits)
+                toks[d] = torch.cat(seq, dim=1).tolist()
+        out["decode_tokens"] = toks["cuda"]
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"{cfg.name}: card tokens {toks['cuda']} != "
+                                 f"CPU {toks['cpu']}")
+    if max(loss_err, grad_err, step_loss_err) > F32_RTOL or \
+            param_err > F32_STEP_ATOL:
+        raise AssertionError(f"{cfg.name} card vs CPU: {out}")
+    return out
+
+
+def _encdec_serve() -> dict:
+    """seamless's decoder at full width through the serve steps: 8
+    requests over ``DECODE_SRC_LEN`` encoder frames, 64-token prompts, 16
+    new tokens; weights drawn at one layer's fan-in (attn wq/wk at
+    ``ATTN_QK_SCALE``), as the archs phase draws them."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import DECODE_SRC_LEN
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import build
+    from repro_torch.serve.serve_step import (greedy_sample,
+                                              make_decode_step,
+                                              make_prefill_step)
+    arch, cfg, specs = build(TRAIN_ARCH, smoke=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _arch_params(cfg, specs=specs)
+    n, lp, new = SERVE["n_requests"], SERVE["prompt_len"], SERVE["new_tokens"]
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.standard_normal(
+        (n, DECODE_SRC_LEN, cfg.d_model)).astype(np.float32)).to("cuda")
+    prompts = torch.tensor(rng.integers(1, cfg.vocab, (n, lp)),
+                           dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(arch, cfg, lp + new)
+    decode = make_decode_step(arch, cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"src_embeds": src,
+                                          "tgt_tokens": prompts})
+        tok = greedy_sample(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits.float()).all())
+        seq = [tok]
+        t0 = time.perf_counter()
+        for _ in range(new - 1):
+            logits, caches = decode(params, tok, caches)
+            tok = greedy_sample(logits)
+            seq.append(tok)
+        toks = torch.cat(seq, dim=1).cpu()          # syncs the card
+        decode_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    flat = toks.reshape(-1).tolist()
+    if not finite or toks.shape != (n, new) or any(launches.values()) or \
+            not all(0 <= t < cfg.vocab for t in flat):
+        raise AssertionError(f"seamless serving: tokens {tuple(toks.shape)}, "
+                             f"finite {finite}, launches {launches}")
+    out = {"config": cfg.name, "src_frames": DECODE_SRC_LEN,
+           "requests": n, "prompt_len": lp, "new_tokens": new,
+           "prefill_s": prefill_s,
+           "host_ms_per_decode_step": decode_s / (new - 1) * 1e3,
+           "tok_per_s": toks.numel() / (prefill_s + decode_s),
+           "distinct_token_share": len(set(flat)) / len(flat),
+           "first_request_tokens": toks[0].tolist(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, caches, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(results: dict) -> dict:
+    """Secure training on the card: the float32 smoke gates, seamless at
+    full width under seda and off through the launcher, the first losses
+    bitwise and the later ones within ``TRAIN_LOSS_RTOL``, a tampered
+    state refused; then seamless's decoder served at full width."""
+    import gc
+
+    import torch
+    results.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"allocated_gb_at_start": torch.cuda.memory_allocated() / 1e9,
+           "f32": {name: _train_smoke_f32(name)
+                   for name in TRAIN_SMOKE_ARCHS}}
+    for scheme in ("seda", "off"):
+        out[scheme] = _train_cell(scheme)
+        print(f"[train] {scheme}: {out[scheme]['step_ms_median_2_6']:.1f} "
+              f"ms/step, peak {out[scheme]['peak_mem_gb']:.2f} GB, losses "
+              f"{out[scheme]['losses']}", flush=True)
+    seda, off = out["seda"]["losses"], out["off"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(seda, off)]
+    out["loss_rel_diff_seda_vs_off"] = rel
+    if seda[0] != off[0] or max(rel[1:]) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"seda losses {seda} vs off {off}")
+    out["serve"] = _encdec_serve()
+    print(f"[train] seamless serving: {out['serve']['tok_per_s']:.1f} tok/s, "
+          f"peak {out['serve']['peak_mem_gb']:.2f} GB", flush=True)
+    return out
+
+
 KERNEL_META = {
     "aes_ctr_keystream": ("src/repro_torch/kernels/csrc/aes_ctr.cu",
                           "src/repro/kernels/aes_ctr/kernel.py:178"),
@@ -3045,6 +3417,7 @@ def main() -> int:
         ("launch", lambda: phase_launch(results)),
         ("archs", lambda: phase_archs(results)),
         ("ssm", lambda: phase_ssm(results)),
+        ("train", lambda: phase_train(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

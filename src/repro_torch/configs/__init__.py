@@ -1,9 +1,9 @@
-"""Architecture registry of the port: the decoder-only LMs.
+"""Architecture registry of the port: the reference's ten archs.
 
 Dense (minitron, smollm), the GELU-MLP MQA stack (granite), MoE (olmoe),
-MLA + MoE (deepseek-v3), the attention-free Mamba-2 stack (mamba2) and
-the Mamba + attention + MoE hybrid (jamba).  The vision and
-encoder-decoder archs are not ported yet (ROADMAP A6).
+MLA + MoE (deepseek-v3), the attention-free Mamba-2 stack (mamba2), the
+Mamba + attention + MoE hybrid (jamba), the VLM backbone with its image
+projector (pixtral) and the encoder-decoder (seamless-m4t).
 
 ``get_arch(name)`` returns an :class:`ArchDef` with the published config
 (``make_config``) and the reduced smoke config the tests use.
@@ -14,27 +14,31 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 
-__all__ = ["ArchDef", "ARCHS", "get_arch", "NOT_PORTED"]
+__all__ = ["ArchDef", "ARCHS", "get_arch", "OPT_DTYPE_OVERRIDES",
+           "DECODE_SRC_LEN"]
 
-# The reference's other archs, each with the ROADMAP item it waits for.
-NOT_PORTED = {
-    "pixtral-12b": "ROADMAP A6/A7: the image projector (img_proj), with "
-                   "training; the reference engine serves no images",
-    "seamless-m4t-large-v2": "ROADMAP A6: the encoder-decoder family "
-                             "(encdec)",
+# Optimizer-state dtype overrides: the largest configs keep Adam moments
+# in bf16.
+OPT_DTYPE_OVERRIDES = {
+    "deepseek-v3-671b": "bfloat16",
+    "jamba-v0.1-52b": "bfloat16",
+    "granite-34b": "bfloat16",
 }
+
+DECODE_SRC_LEN = 1024  # seamless: encoder frames cached for decoding
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchDef:
     name: str
     family: str
-    kind: str                          # lm
+    kind: str                          # lm | encdec
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     source: str
@@ -50,7 +54,7 @@ def _minitron_4b() -> LMConfig:
 def _minitron_4b_smoke() -> LMConfig:
     return LMConfig(name="minitron-4b-smoke", n_layers=2, d_model=96,
                     n_heads=6, n_kv=2, head_dim=16, d_ff=192, vocab=256,
-                    dtype="float32", q_block=16, kv_block=16)
+                    dtype="float32", remat="none", q_block=16, kv_block=16)
 
 
 def _smollm_135m() -> LMConfig:
@@ -63,7 +67,7 @@ def _smollm_135m() -> LMConfig:
 def _smollm_135m_smoke() -> LMConfig:
     return LMConfig(name="smollm-135m-smoke", n_layers=2, d_model=48,
                     n_heads=3, n_kv=1, head_dim=16, d_ff=96, vocab=256,
-                    dtype="float32", q_block=16, kv_block=16)
+                    dtype="float32", remat="none", q_block=16, kv_block=16)
 
 
 def _minitron_8b() -> LMConfig:
@@ -77,8 +81,8 @@ def _minitron_8b() -> LMConfig:
 def _minitron_8b_smoke() -> LMConfig:
     return LMConfig(name="minitron-8b-smoke", n_layers=2, d_model=64,
                     n_heads=4, n_kv=2, head_dim=16, d_ff=128, vocab=256,
-                    dtype="float32", mixer="attn", ffn="dense", q_block=16,
-                    kv_block=16)
+                    dtype="float32", remat="none", mixer="attn", ffn="dense",
+                    q_block=16, kv_block=16)
 
 
 def _granite_34b() -> LMConfig:
@@ -93,7 +97,7 @@ def _granite_34b() -> LMConfig:
 def _granite_34b_smoke() -> LMConfig:
     return LMConfig(name="granite-34b-smoke", n_layers=2, d_model=64,
                     n_heads=4, n_kv=1, head_dim=16, d_ff=128, vocab=256,
-                    dtype="float32", mixer="attn", ffn="dense",
+                    dtype="float32", remat="none", mixer="attn", ffn="dense",
                     gated_ffn=False, q_block=16, kv_block=16)
 
 
@@ -111,8 +115,8 @@ def _olmoe_1b_7b() -> LMConfig:
 def _olmoe_1b_7b_smoke() -> LMConfig:
     return LMConfig(name="olmoe-1b-7b-smoke", n_layers=2, d_model=64,
                     n_heads=4, n_kv=4, head_dim=16, d_ff=32, vocab=256,
-                    dtype="float32", mixer="attn", ffn="moe", moe_every=1,
-                    q_block=16, kv_block=16,
+                    dtype="float32", remat="none", mixer="attn", ffn="moe",
+                    moe_every=1, q_block=16, kv_block=16,
                     moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32,
                                   capacity_factor=2.0))
 
@@ -142,9 +146,9 @@ def _deepseek_v3_671b() -> LMConfig:
 def _deepseek_v3_671b_smoke() -> LMConfig:
     return LMConfig(name="deepseek-v3-671b-smoke", n_layers=4, d_model=64,
                     n_heads=4, n_kv=4, head_dim=16, d_ff=128, vocab=256,
-                    dtype="float32", mixer="mla", ffn="moe", moe_every=1,
-                    moe_start_layer=1, tie_embeddings=False, q_block=16,
-                    kv_block=16,
+                    dtype="float32", remat="none", mixer="mla", ffn="moe",
+                    moe_every=1, moe_start_layer=1, tie_embeddings=False,
+                    q_block=16, kv_block=16,
                     mla=MLAConfig(d_model=64, n_heads=4, q_lora_rank=32,
                                   kv_lora_rank=16, qk_nope_dim=16,
                                   qk_rope_dim=8, v_head_dim=16),
@@ -168,7 +172,8 @@ def _mamba2_780m() -> LMConfig:
 def _mamba2_780m_smoke() -> LMConfig:
     return LMConfig(name="mamba2-780m-smoke", n_layers=2, d_model=32,
                     n_heads=0, n_kv=0, head_dim=1, d_ff=0, vocab=256,
-                    dtype="float32", mixer="mamba", ffn="none", ssd_chunk=16,
+                    dtype="float32", remat="none", mixer="mamba", ffn="none",
+                    ssd_chunk=16,
                     mamba=Mamba2Config(d_model=32, d_inner=64, head_dim=16,
                                        d_state=8, n_groups=1, d_conv=4))
 
@@ -193,13 +198,51 @@ def _jamba_v01_52b() -> LMConfig:
 def _jamba_v01_52b_smoke() -> LMConfig:
     return LMConfig(name="jamba-v0.1-52b-smoke", n_layers=8, d_model=32,
                     n_heads=4, n_kv=2, head_dim=8, d_ff=64, vocab=256,
-                    dtype="float32", mixer="mamba", attn_every=8,
+                    dtype="float32", remat="none", mixer="mamba", attn_every=8,
                     attn_offset=3, ffn="moe", moe_every=2, moe_offset=1,
                     q_block=16, kv_block=16, ssd_chunk=8,
                     mamba=Mamba2Config(d_model=32, d_inner=64, head_dim=16,
                                        d_state=8, n_groups=1, d_conv=4),
                     moe=MoEConfig(n_experts=4, top_k=2, d_model=32, d_ff=64,
                                   capacity_factor=2.0))
+
+
+PIXTRAL_PATCHES, PIXTRAL_D_VISION = 256, 1024
+
+
+def _pixtral_12b() -> LMConfig:
+    # [vlm] 40L d_model=5120 32H (GQA kv=8) d_ff=14336 vocab=131072; the
+    # vision frontend is a stub: 256 precomputed patch embeddings of
+    # d_vision 1024, mapped into the decoder by a learned projector.
+    return LMConfig(name="pixtral-12b", n_layers=40, d_model=5120,
+                    n_heads=32, n_kv=8, head_dim=128, d_ff=14336,
+                    vocab=131072, mixer="attn", ffn="dense",
+                    tie_embeddings=True, n_image_patches=PIXTRAL_PATCHES,
+                    d_vision=PIXTRAL_D_VISION)
+
+
+def _pixtral_12b_smoke() -> LMConfig:
+    return LMConfig(name="pixtral-12b-smoke", n_layers=2, d_model=64,
+                    n_heads=4, n_kv=2, head_dim=16, d_ff=128, vocab=256,
+                    dtype="float32", mixer="attn", ffn="dense", q_block=16,
+                    kv_block=16, remat="none", n_image_patches=8,
+                    d_vision=32)
+
+
+def _seamless_m4t_large_v2() -> EncDecConfig:
+    # [audio] 24 + 24 L d_model=1024 16H (kv=16 = MHA) d_ff=8192
+    # vocab=256206; the speech frontend (w2v-BERT) is a stub: precomputed
+    # frame embeddings.
+    return EncDecConfig(name="seamless-m4t-large-v2", enc_layers=24,
+                        dec_layers=24, d_model=1024, n_heads=16, n_kv=16,
+                        head_dim=64, d_ff=8192, vocab=256206)
+
+
+def _seamless_m4t_large_v2_smoke() -> EncDecConfig:
+    return EncDecConfig(name="seamless-m4t-large-v2-smoke", enc_layers=2,
+                        dec_layers=2, d_model=64, n_heads=4, n_kv=4,
+                        head_dim=16, d_ff=128, vocab=256, dtype="float32",
+                        q_block=16, kv_block=16, remat="none")
 
 
 ARCHS = {a.name: a for a in (
@@ -219,13 +262,15 @@ ARCHS = {a.name: a for a in (
             "arXiv:2405.21060; unverified"),
     ArchDef("jamba-v0.1-52b", "hybrid", "lm", _jamba_v01_52b,
             _jamba_v01_52b_smoke, "arXiv:2403.19887; hf"),
+    ArchDef("pixtral-12b", "vlm", "lm", _pixtral_12b, _pixtral_12b_smoke,
+            "hf:mistralai/Pixtral-12B-2409; unverified"),
+    ArchDef("seamless-m4t-large-v2", "audio", "encdec",
+            _seamless_m4t_large_v2, _seamless_m4t_large_v2_smoke,
+            "arXiv:2308.11596; hf"),
 )}
 
 
 def get_arch(name: str) -> ArchDef:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet "
-                                  f"({NOT_PORTED[name]})")
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]

@@ -1,9 +1,13 @@
 """Carry a parameter tree across from numpy arrays.
 
 The reference package's parameters, turned into numpy arrays leaf by
-leaf, have the same tree layout as :func:`repro_torch.models.lm.lm_specs`;
+leaf, have the same tree layout as the port's specs
+(:func:`repro_torch.models.lm.lm_specs`, with ``img_proj`` for a VLM;
+:func:`repro_torch.models.encdec.encdec_specs` for the encoder-decoder);
 :func:`params_from_numpy` makes them torch tensors, so both packages
-compute the same function on the same weights.
+compute the same function on the same weights, and their flat leaf
+order (:func:`repro_torch.core.layout.tree_flatten`) is the
+reference's, on which the secure state and checkpoints depend.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.encdec import EncDecConfig, encdec_specs
 from repro_torch.models.layers import DTYPES, ParamSpec
 from repro_torch.models.lm import LMConfig, lm_specs
 
@@ -29,10 +34,12 @@ def _tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device=device, dtype=DTYPES[dtype])
 
 
-def params_from_numpy(cfg: LMConfig, tree: Any, device=None) -> dict:
+def params_from_numpy(cfg: LMConfig | EncDecConfig, tree: Any,
+                      device=None) -> dict:
     """Numpy parameter tree (reference layout) -> torch parameter tree.
 
-    Leaves are matched by key path and checked against :func:`lm_specs`.
+    Leaves are matched by key path and checked against the config's
+    specs.
     """
     device = resolve_device(device)
 
@@ -49,4 +56,6 @@ def params_from_numpy(cfg: LMConfig, tree: Any, device=None) -> dict:
         return [walk(a, b, f"{path}[{i}]") for i, (a, b) in
                 enumerate(zip(s, t))]
 
-    return walk(lm_specs(cfg), tree, "params")
+    specs = (encdec_specs(cfg) if isinstance(cfg, EncDecConfig)
+             else lm_specs(cfg))
+    return walk(specs, tree, "params")

@@ -27,8 +27,10 @@ with either engine::
 
 mamba2-780m (attention-free) serves through ``--engine simple``; with
 ``--engine paged`` it raises the reference's ``ValueError``: it has no
-KV cache to page.  The vision and encoder-decoder archs exit with the
-ROADMAP item they wait for.
+KV cache to page.  seamless-m4t-large-v2 exits, as in the reference
+(its decoder serves through :mod:`repro_torch.serve.serve_step`), and so
+does pixtral-12b: neither engine passes image embeddings to the prefill
+(the reference fails inside its prefill instead).
 
 ``--tenants N`` registers N tenants and serves the batch round-robin
 across their sessions, each tenant's pages under its own (tenant,
@@ -229,10 +231,13 @@ def main(argv=None) -> dict:
                          "--http-port/--fault-tolerance need --engine "
                          "paged (the simple loop has no observability "
                          "surface)")
-    try:
-        arch = get_arch(args.arch)
-    except NotImplementedError as e:       # a family not ported yet
-        raise SystemExit(str(e)) from None
+    arch = get_arch(args.arch)
+    if arch.kind == "encdec":
+        raise SystemExit("use the decoder demo in examples/ for enc-dec")
+    if arch.family == "vlm":
+        raise SystemExit(f"{args.arch}: the serving engines pass no image "
+                         "embeddings, so they serve no images (train it "
+                         "with repro_torch.launch.train)")
     device = resolve_device(args.device)
     cfg = arch.make_smoke_config() if args.smoke else arch.make_config()
     specs = lm_mod.lm_specs(cfg)

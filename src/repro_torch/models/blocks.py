@@ -17,8 +17,8 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import dense, rms_norm, spec
 
-__all__ = ["LayerKind", "block_specs", "block_prefill", "block_decode",
-           "block_cache_specs"]
+__all__ = ["LayerKind", "block_specs", "block_forward", "block_prefill",
+           "block_decode", "block_cache_specs"]
 
 MIXERS = ("attn", "mla", "mamba")
 FFNS = ("dense", "moe", "none")
@@ -55,15 +55,34 @@ def block_specs(cfg, kind: LayerKind) -> dict:
     return s
 
 
-def _apply_ffn(cfg, kind: LayerKind, params, x):
+def _apply_ffn(cfg, kind: LayerKind, params, x, aux):
+    """``(x + ffn(norm(x)), aux + the MoE load-balance loss)``."""
     if kind.ffn == "none":
-        return x
+        return x, aux
     h = rms_norm(x, params["norm_ffn"])
     if kind.ffn == "dense":
-        return x + moe_mod.dense_ffn(params["ffn"], h)
+        return x + moe_mod.dense_ffn(params["ffn"], h), aux
     b, l, d = h.shape
-    y, _ = moe_mod.moe_ffn(cfg.moe, params["moe"], h.reshape(b * l, d))
-    return x + y.reshape(b, l, d)
+    y, moe_aux = moe_mod.moe_ffn(cfg.moe, params["moe"], h.reshape(b * l, d))
+    return x + y.reshape(b, l, d), aux + moe_aux
+
+
+def block_forward(cfg, kind: LayerKind, params, x, positions, aux):
+    """Training forward: ``(x, aux)`` -> ``(x', aux')``.  Writes nothing
+    in place, so autograd differentiates it."""
+    _check(kind)
+    h = rms_norm(x, params["norm_mixer"])
+    if kind.mixer == "attn":
+        out = attn_mod.attention(params["attn"], h, positions,
+                                 q_block=cfg.q_block, kv_block=cfg.kv_block)
+    elif kind.mixer == "mla":
+        out = mla_mod.mla_attention(cfg.mla, params["mla"], h, positions,
+                                    q_block=cfg.q_block,
+                                    kv_block=cfg.kv_block)
+    else:
+        out = mamba_mod.mamba2_forward(cfg.mamba, params["mamba"], h,
+                                       chunk=cfg.ssd_chunk)
+    return _apply_ffn(cfg, kind, params, x + out, aux)
 
 
 def block_cache_specs(cfg, kind: LayerKind, batch: int, max_len: int):
@@ -117,7 +136,7 @@ def block_prefill(cfg, kind: LayerKind, params, x, positions, max_len: int):
         window = dense(h[:, -(cfg.mamba.d_conv - 1):],
                        p["in_proj"][:, di: 2 * di + 2 * gn])
         cache = mamba_mod.Mamba2State(state, window.contiguous(), length)
-    return _apply_ffn(cfg, kind, params, x + out), cache
+    return _apply_ffn(cfg, kind, params, x + out, 0.0)[0], cache
 
 
 def block_decode(cfg, kind: LayerKind, params, x, cache):
@@ -130,4 +149,4 @@ def block_decode(cfg, kind: LayerKind, params, x, cache):
     else:
         out, cache = mamba_mod.mamba2_decode(cfg.mamba, params["mamba"], h,
                                              cache)
-    return _apply_ffn(cfg, kind, params, x + out), cache
+    return _apply_ffn(cfg, kind, params, x + out, 0.0)[0], cache

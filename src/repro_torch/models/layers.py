@@ -8,15 +8,18 @@ explicit ``torch.Generator``; its numbers differ from ``jax.random``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core.layout import tree_flatten, tree_unflatten
 
 __all__ = ["ParamSpec", "spec", "init_params", "tree_map", "rms_norm", "rope",
-           "dense", "DTYPES"]
+           "dense", "masked_nll", "unstack", "maybe_remat", "DTYPES"]
 
 DEFAULT_DTYPE = "bfloat16"
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -97,3 +100,30 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in float32 over the positions whose
+    label is >= 0 (``-1`` marks padding)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).float()
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def unstack(tree: Any, steps: int) -> list:
+    """A tree of (steps, ...) stacked leaves -> ``steps`` per-layer trees
+    of views; one ``unbind`` a leaf, so the backward pass stacks the
+    layers' gradients once."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [u[i] for u in per_leaf])
+            for i in range(steps)]
+
+
+def maybe_remat(remat: str, fn):
+    """``fn`` recomputed in the backward pass when ``remat == "full"``
+    and autograd is recording (serving runs it as it is)."""
+    if remat == "full" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn

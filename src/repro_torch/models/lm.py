@@ -1,4 +1,4 @@
-"""Decoder-only LM: specs, prefill and decode.
+"""Decoder-only LM: specs, training forward and loss, prefill and decode.
 
 Homogeneous stacks (minitron, granite, smollm, olmoe, mamba2) are one
 segment; prefix-irregular ones (deepseek-v3: dense layers, then MoE)
@@ -15,7 +15,13 @@ reference layout::
 
 with ``"mla"`` or ``"mamba"`` in place of ``"attn"``, ``"moe"`` in place
 of ``"ffn"`` and no ``"norm_ffn"``/``"ffn"`` for ``ffn="none"``, where
-the layer kind says so.  Caches are
+the layer kind says so, and ``"img_proj": (d_vision, d)`` for a VLM
+(pixtral), whose projected image patches prefix the text.  Training
+(:func:`lm_forward`, :func:`lm_loss`) unbinds each stacked leaf once,
+so autograd stacks the per-layer gradients in one pass, and with
+``remat="full"`` recomputes each period in the backward pass
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` with
+nothing saveable).  Caches are
 ``[[KVCache(k (L, B, max_len, n_kv, D), v, length (L, ...))]]`` (or
 ``MLACache(c_kv, k_pe, length)``, or ``Mamba2State(ssm (L, B, H, P, N),
 conv (L, B, d_conv - 1, conv_dim), length)``), one entry per kind of the
@@ -26,6 +32,7 @@ period, so a flat walk over them gives the reference's leaf order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -33,13 +40,14 @@ from torch import nn
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import CacheSpec
-from repro_torch.models.layers import ParamSpec, rms_norm, spec, tree_map
+from repro_torch.models.layers import (ParamSpec, masked_nll, maybe_remat,
+                                       rms_norm, spec, tree_map, unstack)
 from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 
 __all__ = ["LMConfig", "LM", "layout", "segments", "lm_specs", "cache_specs",
-           "lm_prefill", "lm_decode"]
+           "lm_forward", "lm_loss", "lm_prefill", "lm_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +77,10 @@ class LMConfig:
     q_block: int = 512
     kv_block: int = 1024
     ssd_chunk: int = 256
+    remat: str = "full"           # full | none (training only)
+    # The VLM frontend is a stub: precomputed patch embeddings.
+    n_image_patches: int = 0
+    d_vision: int = 0
 
     def __post_init__(self):
         if not self.head_dim:
@@ -130,6 +142,8 @@ def lm_specs(cfg: LMConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = spec((cfg.d_model, cfg.vocab), cfg.dtype)
+    if cfg.n_image_patches:
+        s["img_proj"] = spec((cfg.d_vision, cfg.d_model), cfg.dtype)
     return s
 
 
@@ -158,6 +172,53 @@ def _head(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["lm_head"])
 
 
+def _embed_tokens(cfg: LMConfig, params, batch) -> tuple:
+    """``(x, positions)``, the projected image patches (``batch
+    ["image_embeds"]``, (B, P, d_vision)) ahead of the text for a VLM."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.n_image_patches:
+        img = torch.matmul(batch["image_embeds"].to(x.dtype),
+                           params["img_proj"])
+        x = torch.cat([img, x], dim=1)
+    b, l = x.shape[:2]
+    positions = torch.arange(l, dtype=torch.int32,
+                             device=x.device)[None].expand(b, l)
+    return x, positions
+
+
+def _period(cfg: LMConfig, kinds, period, positions, x, aux) -> tuple:
+    """One period of blocks (the reference's scan body)."""
+    for kind, p in zip(kinds, period):
+        x, aux = blk.block_forward(cfg, kind, p, x, positions, aux)
+    return x, aux
+
+
+def lm_forward(cfg: LMConfig, params, batch) -> tuple:
+    """Training forward: ``(logits (B, L, V), aux)``, ``aux`` the summed
+    MoE load-balance loss (float32 scalar)."""
+    x, positions = _embed_tokens(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_params, (kinds, steps) in zip(params["segments"], segments(cfg)):
+        per_kind = [unstack(p, steps) for p in seg_params]
+        for i in range(steps):
+            body = functools.partial(_period, cfg, kinds,
+                                     [layers[i] for layers in per_kind],
+                                     positions)
+            x, aux = maybe_remat(cfg.remat, body)(x, aux)
+    x = rms_norm(x, params["final_norm"])
+    return _head(cfg, params, x), aux
+
+
+def lm_loss(cfg: LMConfig, params, batch) -> tuple:
+    """Next-token cross entropy over the text positions (``-1`` labels
+    masked) plus 0.01 x the MoE aux loss: ``(loss, metrics)``."""
+    logits, aux = lm_forward(cfg, params, batch)
+    if cfg.n_image_patches:
+        logits = logits[:, cfg.n_image_patches:]
+    loss = masked_nll(logits, batch["labels"])
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
+
+
 def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
                last_pos: Optional[int] = None):
     """Full-sequence prefill: returns (last_logits (B, 1, V), caches).
@@ -165,11 +226,7 @@ def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
     ``last_pos`` selects the position whose logits are returned (the
     engine right-pads prompts to a power-of-two length).
     """
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    b, l = tokens.shape
-    positions = torch.arange(l, dtype=torch.int32,
-                             device=x.device)[None].expand(b, l)
+    x, positions = _embed_tokens(cfg, params, batch)
     caches = []
     for seg_params, (kinds, steps) in zip(params["segments"], segments(cfg)):
         per_kind = [[] for _ in kinds]

@@ -2,8 +2,10 @@
 
 The port of ``repro.serve.serve_step``: the unprotected dense loop of
 the launcher's ``--engine simple`` (a prefill over the batch, then one
-token per step against the dense KV cache).  Decoder-only LMs only: the
-encoder-decoder branch waits for its model family.
+token per step against the dense KV cache).  For the encoder-decoder
+(``arch.kind == "encdec"``) the prefill encodes ``src_embeds`` and runs
+the decoder over ``tgt_tokens``; decode steps the decoder against its
+self-attention cache and the cached cross K/V.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
 
 __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
@@ -25,15 +28,13 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
 
 
-def _lm_only(arch) -> None:
-    if arch.kind != "lm":
-        raise NotImplementedError(f"serve steps for {arch.kind!r} models are "
-                                  "not ported (decoder-only LMs only)")
-
-
 def make_prefill_step(arch, cfg, max_len: int) -> Callable:
-    """prefill(params, {"tokens": (B, L)}) -> (logits, caches)."""
-    _lm_only(arch)
+    """prefill(params, {"tokens": (B, L)}) -> (logits, caches); for
+    encdec, ``{"src_embeds": (B, S, d), "tgt_tokens": (B, L)}``."""
+    if arch.kind == "encdec":
+        def prefill(params, batch):
+            return ed.decoder_prefill(cfg, params, batch, max_len)
+        return prefill
 
     def prefill(params, batch):
         return lm_mod.lm_prefill(cfg, params, batch, max_len)
@@ -42,7 +43,10 @@ def make_prefill_step(arch, cfg, max_len: int) -> Callable:
 
 def make_decode_step(arch, cfg) -> Callable:
     """decode(params, tokens (B, 1), caches) -> (logits, new caches)."""
-    _lm_only(arch)
+    if arch.kind == "encdec":
+        def decode(params, tokens, caches):
+            return ed.decoder_decode(cfg, params, tokens, caches)
+        return decode
 
     def decode(params, tokens, caches):
         return lm_mod.lm_decode(cfg, params, tokens, caches)

@@ -5,7 +5,8 @@ deepseek-v3-671b (MLA + shared-expert MoE, dense prefix, untied head).
 Inputs are seeded numpy arrays given to both packages; float32, at the
 reference's smoke configs.
 
-* Configs equal the reference's field for field.
+* Configs equal the reference's field for field (also pixtral's and
+  seamless's, which train in ``tests/test_torch_train.py``).
 * Modules (atol = rtol = 1e-5): ``dense_ffn`` without a gate (GELU,
   tanh form), ``moe_ffn`` where an expert overflows its capacity (a
   drop asserted), with a shared expert, and on tied router
@@ -19,8 +20,9 @@ reference's smoke configs.
   on prompts whose lengths are not powers of two; olmoe also with a pool
   small enough to preempt, deepseek also under 2 rotating tenants.
 * The launcher: ``--arch olmoe-1b-7b --smoke`` through both engines;
-  the archs not ported exit naming their ROADMAP item, and mamba2's
-  paged engine raises the reference's ``ValueError``.
+  seamless exits with the reference's message and pixtral because the
+  engines serve no images, and mamba2's paged engine raises the
+  reference's ``ValueError``.
 """
 
 import dataclasses
@@ -32,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import OPT_DTYPE_OVERRIDES as J_OPT_DTYPE_OVERRIDES
 from repro.configs import get_arch as j_get_arch
 from repro.models import lm as j_lm
 from repro.models import mla as j_mla
@@ -40,7 +44,8 @@ from repro.serve import kv_pages as j_kvp
 from repro.serve.engine import SecureServingEngine as JEngine
 from repro.tenancy import KeyHierarchy as JHierarchy
 from repro.tenancy import TenantRegistry as JRegistry
-from repro_torch.configs import NOT_PORTED, get_arch
+from repro_torch.configs import ARCHS as PORT_ARCHS
+from repro_torch.configs import OPT_DTYPE_OVERRIDES, get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import blocks, lm, mla, moe
 from repro_torch.serve import kv_pages as kvp
@@ -105,7 +110,8 @@ def model(request):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["pixtral-12b",
+                                          "seamless-m4t-large-v2"])
 def test_configs_match_the_reference(name):
     j_arch, arch = j_get_arch(name), get_arch(name)
     assert (arch.family, arch.kind, arch.source) == (
@@ -125,6 +131,8 @@ def test_configs_match_the_reference(name):
                 assert set(want._fields) - set(got._fields) <= {"dispatch"}
             else:
                 assert got == want, f.name
+        if arch.kind == "encdec":
+            continue
         assert lm.segments(cfg) == [
             (tuple(tuple(k) for k in kinds), steps)
             for kinds, steps in j_lm.segments(j_cfg)]
@@ -142,16 +150,20 @@ def test_deepseek_cut_to_four_layers_keeps_the_dense_prefix():
 
 
 def test_mamba_blocks_and_unported_archs_raise():
-    """A mamba block builds; only the vision and encoder-decoder archs
-    are still refused."""
+    """A mamba block builds; every arch of the reference is ported (the
+    vision and encoder-decoder ones since the training slice), with the
+    reference's optimizer-state overrides, and only an unknown name is
+    refused."""
     cfg = get_arch("mamba2-780m").make_smoke_config()
     specs = blocks.block_specs(cfg, blocks.LayerKind("mamba", "none"))
     assert set(specs) == {"norm_mixer", "mamba"}
     assert specs["mamba"]["in_proj"].shape == (32, cfg.mamba.proj_dim)
-    for name in ("pixtral-12b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(name)
-    assert set(NOT_PORTED) == {"pixtral-12b", "seamless-m4t-large-v2"}
+    assert set(PORT_ARCHS) == set(J_ARCHS)
+    assert (get_arch("pixtral-12b").kind,
+            get_arch("seamless-m4t-large-v2").kind) == ("lm", "encdec")
+    assert OPT_DTYPE_OVERRIDES == J_OPT_DTYPE_OVERRIDES
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("gpt-5")
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +418,10 @@ def test_launcher_serves_olmoe_through_both_engines():
     assert paged["tokens"].shape == simple["tokens"].shape == (3, 4)
     assert paged["deferred_mac_ok"] is True
     assert paged["stats"]["fused_write_ticks"] > 0
-    for name in ("pixtral-12b", "seamless-m4t-large-v2"):
-        with pytest.raises(SystemExit, match="ROADMAP A6"):
+    for name, why in (("seamless-m4t-large-v2",
+                       "use the decoder demo in examples/ for enc-dec"),
+                      ("pixtral-12b", "serve no images")):
+        with pytest.raises(SystemExit, match=why):
             launch.main(["--arch", name, "--smoke", "--device", "cpu"])
     # mamba2 has no KV cache to page: the reference's ValueError.
     with pytest.raises(ValueError, match=r"no paged \(KV/latent\) leaves "

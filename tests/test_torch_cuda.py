@@ -19,7 +19,8 @@ byte-equal with the kernels on and off; a flipped byte of a deepseek
 latent page (c_kv or k_pe) raises.  The chunked SSD scan on the card
 equals the sequential recurrence, and jamba's smoke config (attention
 pages beside its Mamba state) gives the CPU's tokens, its writes on the
-fused kernel.
+fused kernel.  One seda train step of seamless's smoke config on the
+card gives the CPU's loss and params, its crossings on B1, B7 and B8.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -793,3 +794,54 @@ def test_jamba_on_the_card_kernels_equal_plain_and_cpu(card):
     for k in ("aes_ctr_keystream", "fused_crypt_mac",
               "fused_crypt_mac_write"):
         assert LAUNCHES[k] > 0 and plain[2][k] == 0, k
+
+
+# ---------------------------------------------------------------------------
+# Secure training on the card.
+# ---------------------------------------------------------------------------
+
+
+def test_secure_train_step_on_the_card_equals_cpu(card):
+    """One seda train step of seamless's smoke config (float32) on the
+    card gives the CPU port's loss (rtol 1e-5) and, unprotected, its
+    params (atol 1e-5: one AdamW step moves a param by at most lr x
+    warmup, 3e-6, so a gradient sign that differs near zero costs at most
+    twice that); the card's crossings run B1, B7 and B8, 4, 2 and 2 per
+    leaf."""
+    from repro_torch.core.layout import tree_flatten
+    from repro_torch.core.secure_exec import SecureExecutor
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.train import build
+    from repro_torch.models.layers import init_params, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_secure_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, cfg, specs = build("seamless-m4t-large-v2", smoke=True)
+    params = init_params(specs, 0, device="cpu")
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                      kind="encdec", d_model=cfg.d_model, src_len=8)
+    out = {}
+    for dev in ("cpu", card):
+        ex = SecureExecutor("seda", keys=SecureKeys.derive(0, device=dev))
+        p = tree_map(lambda t: t.to(dev), params)
+        region = ex.region_spec(p)
+        step = make_secure_train_step(arch, cfg, AdamWConfig(), ex, region)
+        state = ex.protect(p, region, step=0)
+        reset_launches()
+        state, _, metrics = step(state, init_opt_state(p, AdamWConfig()),
+                                 make_batch(data, 0, device=dev), 0)
+        launches = dict(LAUNCHES)
+        new, ok = ex.unprotect(state, region)
+        assert bool(metrics["integrity_ok"]) and bool(ok)
+        out[str(dev)] = (float(metrics["loss"]), tree_flatten(new)[0],
+                         launches)
+    (loss_c, leaves_c, _), (loss_g, leaves_g, launches) = out.values()
+    n = len(leaves_c)
+    assert launches == {**{k: 0 for k in LAUNCHES},
+                        "aes_ctr_keystream": 4 * n, "otp_xor": 2 * n,
+                        "nh_hash_kernel_call": 2 * n}
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
+    for a, b in zip(leaves_g, leaves_c, strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=0)

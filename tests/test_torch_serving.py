@@ -289,7 +289,8 @@ def test_engine_submit_surface_and_device(smoke):
             SecureServingEngine(arch, cfg, params, scheme="off")
 
 
-def test_simple_engine_matches_paged_off_and_reference_loop(smoke):
+def test_simple_engine_matches_paged_off_and_reference_loop(smoke,
+                                                            monkeypatch):
     """``--engine simple`` gives the paged ``off`` engine's tokens on the
     same prompts, and its serve steps the reference's dense loop."""
     from repro.serve import serve_step as j_step
@@ -321,6 +322,13 @@ def test_simple_engine_matches_paged_off_and_reference_loop(smoke):
         j_tok = j_step.greedy_sample(j_logits)
         tok = serve_step.greedy_sample(logits)
     assert (np.asarray(j_tok) == tok.numpy()).all()
-    with pytest.raises(NotImplementedError):
-        serve_step.make_decode_step(
-            dataclasses.replace(arch, kind="encdec"), cfg)
+    # An encoder-decoder arch gets the decoder's steps, as in the
+    # reference (held against it in tests/test_torch_train.py).
+    from repro_torch.models import encdec
+    monkeypatch.setattr(encdec, "decoder_prefill", lambda *a: "prefill")
+    monkeypatch.setattr(encdec, "decoder_decode", lambda *a: "decode")
+    ed_arch = dataclasses.replace(arch, kind="encdec")
+    assert serve_step.make_prefill_step(ed_arch, cfg, 9)(params, {}) == (
+        "prefill")
+    assert serve_step.make_decode_step(ed_arch, cfg)(params, tok,
+                                                     caches) == "decode"
