@@ -28,6 +28,13 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
 5. profile — where a steady decode tick's time goes (CUPTI trace):
              device busy time, idle share, the crypto kernels' share;
              single-tenant seda, off, and the tenants phase's config.
+             Then each engine's ``profile()`` between two ticks: the
+             protection/model split of the all-resident decode variant
+             and its H100 roofline beside the traced device ms.  Each
+             kernel's charges equal its calls' operand + output bytes and
+             operations, counted from the page spec; launch counts and
+             pool bytes stay; each engine finishes with the serve phase's
+             tokens; ``off`` < 0.01 and seda > 0.01 on both ratios.
 6. tamper  — one flipped ciphertext byte of a live page makes the next
              ``step()`` raise ``IntegrityError``.
 7. tenants — the serve phase's weights and requests through a
@@ -101,7 +108,10 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              A page of shard 0 copied into shard 1's pool fails the next
              tick; a pool swapped in around the listeners fails the
              root, and still does one tick later.  A CUPTI trace of 3
-             steady cluster ticks beside the profile phase's tick.
+             steady cluster ticks beside the profile phase's tick, then
+             ``ClusterEngine.profile()``'s rollup, after which the pools
+             and the cluster root MAC are unchanged and the deferred
+             root check holds.
 14. launch — the port's launcher (``repro_torch.launch.serve.main``) at
              full width with 4 tenants and a rotation every tick, after
              the earlier model is freed: 8 x 16 tokens, mixed-key ticks,
@@ -212,10 +222,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the float32
 # rate outside the tensor cores.  The data sheet gives no 32-bit integer
 # rate; counting integer operations against the float32 rate keeps each
-# bound a lower bound on time.
+# bound a lower bound on time.  A kernel's operations are the package's
+# own counts (``repro_torch.kernels.common.*_ops``), the ones a cost
+# profile charges its launches.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-AES_OPS_PER_BLOCK = 1056   # 9 rounds x 16 B x 7 + final 16 x 2 + first ARK 16
 
 SERVE = dict(n_requests=8, prompt_len=64, new_tokens=16, page_tokens=8)
 PAGES_PER_SLOT = 10        # 64 + 16 tokens = 10 pages of 8
@@ -290,6 +301,23 @@ def kernel_ms(fn, symbol: str, n: int = 25) -> tuple:
     return median_ms(lambda: [fn() for _ in range(10)], n=n) / 10, "events"
 
 
+def aes_bytes(n: int, k=None) -> int:
+    """B1 (B4 over a ``k``-row bank) on ``n`` counters, each operand and
+    output once: counters in, lanes out, the 1 KB T-table, the schedule
+    (or the bank and one int32 row per block)."""
+    return n * 32 + 1024 + (176 if k is None else n * 4 + 176 * k)
+
+
+def fused_bytes(n: int, s: int, k=None) -> int:
+    """B2 / B3 (B5 / B6 over a ``k``-row bank) on ``n`` blocks of ``s``
+    segments, each operand and output once: data, base pads and binding
+    in, data and NH out per block (and a row); the diversifiers and NH
+    key (the banks) once."""
+    from repro_torch.kernels.fused_crypt_mac.kernel import mixed_shared_bytes
+    per_block = 16 * s + 16 + 32 + 16 * s + 8 + (0 if k is None else 4)
+    return n * per_block + mixed_shared_bytes(1 if k is None else k, s)
+
+
 def bound(bytes_moved: float, ops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
@@ -357,6 +385,7 @@ def phase_kernels(cfg, results: dict) -> dict:
     from repro_torch.core.secure_memory import SecureKeys
     from repro_torch.kernels.aes_ctr import kernel as aes_k
     from repro_torch.kernels.aes_ctr import ref as aes_ref
+    from repro_torch.kernels.common import aes_ctr_ops, fused_crypt_mac_ops
     from repro_torch.kernels.fused_crypt_mac import kernel as fused_k
     from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
     from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
@@ -384,8 +413,7 @@ def phase_kernels(cfg, results: dict) -> dict:
     e = err(got, want)
     if e:
         raise AssertionError(f"aes_ctr_keystream differs from plain: {e}")
-    # Counters in, lanes out; the schedule and the 1 KB T-table once.
-    b_ms, b_by = bound(n * 32 + 176 + 1024, n * AES_OPS_PER_BLOCK)
+    b_ms, b_by = bound(aes_bytes(n), aes_ctr_ops(n))
     call = lambda: aes_k.aes_ctr_keystream(counters, keys.round_keys)
     ms, timing = kernel_ms(call, "aes_ctr_keystream_kernel")
     out["aes_ctr_keystream"] = dict(
@@ -415,8 +443,7 @@ def phase_kernels(cfg, results: dict) -> dict:
             if s == 4:
                 timed = args
         s = 4
-        moved = n * (16 * s + 16 + 32 + 16 * s + 8) + 16 * s + 4 * (4 * s + 8)
-        b_ms, b_by = bound(moved, n * (16 * s + 16))
+        b_ms, b_by = bound(fused_bytes(n, s), fused_crypt_mac_ops(n, s))
         ms, timing = kernel_ms(lambda: fn(*timed), "fused_crypt_mac_kernel")
         out[name] = dict(
             n=n, max_abs_err=worst, ms=ms, timing=timing,
@@ -438,6 +465,7 @@ def _keystream_at_largest_leaf(cfg, keys, err) -> dict:
 
     from repro_torch.kernels.aes_ctr import kernel as aes_k
     from repro_torch.kernels.aes_ctr import ref as aes_ref
+    from repro_torch.kernels.common import aes_ctr_ops
     path, n = _largest_leaf(cfg)
     counters = torch.randint(-2 ** 31, 2 ** 31, (n, 4), dtype=torch.int32,
                              device="cuda",
@@ -451,7 +479,7 @@ def _keystream_at_largest_leaf(cfg, keys, err) -> dict:
         raise AssertionError(f"aes_ctr_keystream differs from plain at the "
                              f"largest leaf: {e}")
     del got
-    b_ms, b_by = bound(n * 32 + 176 + 1024, n * AES_OPS_PER_BLOCK)
+    b_ms, b_by = bound(aes_bytes(n), aes_ctr_ops(n))
     call = lambda: aes_k.aes_ctr_keystream(counters, keys.round_keys)
     ms, timing = kernel_ms(call, "aes_ctr_keystream_kernel")
     res = dict(leaf=path, n=n, compared_blocks=m, max_abs_err=e, ms=ms,
@@ -483,6 +511,7 @@ def _mixed_kernels(dev, shapes, u32, err) -> dict:
 
     from repro_torch.kernels.aes_ctr import kernel as aes_k
     from repro_torch.kernels.aes_ctr import ref as aes_ref
+    from repro_torch.kernels.common import aes_ctr_ops, fused_crypt_mac_ops
     from repro_torch.kernels.fused_crypt_mac import kernel as fused_k
     from repro_torch.kernels.fused_crypt_mac import ops as fused_ops
     from repro_torch.kernels.fused_crypt_mac import ref as fused_ref
@@ -517,9 +546,7 @@ def _mixed_kernels(dev, shapes, u32, err) -> dict:
         ms, timing = kernel_ms(call, "aes_ctr_keystream_multi_kernel")
         timed[kind] = dict(ms=ms, timing=timing, call_ms=median_ms(call))
     r = row_sets["random"]
-    # Counters in, a row per block, lanes out; the bank and the 1 KB
-    # T-table once.
-    b_ms, b_by = bound(n * 36 + 176 * k + 1024, n * AES_OPS_PER_BLOCK)
+    b_ms, b_by = bound(aes_bytes(n, k), aes_ctr_ops(n))
     out["aes_ctr_keystream_multi"] = dict(
         n=n, k=k, max_abs_err=e, **timed["random"],
         page_uniform_rows=dict(page_blocks=page, **timed["page_uniform"]),
@@ -547,10 +574,7 @@ def _mixed_kernels(dev, shapes, u32, err) -> dict:
             if s == 4:
                 timed = args
         s = 4
-        # ct + base + bind + row in, out + nh out, per block; both banks once.
-        moved = (n * (16 * s + 16 + 32 + 4 + 16 * s + 8)
-                 + fused_k.mixed_shared_bytes(k, s))
-        b_ms, b_by = bound(moved, n * (16 * s + 16))
+        b_ms, b_by = bound(fused_bytes(n, s, k), fused_crypt_mac_ops(n, s))
         ms, timing = kernel_ms(lambda: fn(*timed),
                                "fused_crypt_mac_mixed_kernel")
         out[name] = dict(
@@ -585,6 +609,7 @@ def _weights_kernels(cfg, dev, err) -> dict:
     import torch
 
     from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.kernels.common import nh_hash_ops, otp_xor_ops
     from repro_torch.kernels.otp_xor import kernel as ox_k
     from repro_torch.kernels.otp_xor import ops as ox_ops
     from repro_torch.kernels.otp_xor import ref as ox_ref
@@ -608,8 +633,8 @@ def _weights_kernels(cfg, dev, err) -> dict:
     if e:
         raise AssertionError(f"otp_xor differs from plain: {e}")
     del got
-    # data + base in, out; the diversifiers once.  Two XORs per lane.
-    b_ms, b_by = bound(n * (16 * s + 16 + 16 * s) + 16 * s, n * 4 * s * 2)
+    # data + base in, out; the diversifiers once.
+    b_ms, b_by = bound(n * (16 * s + 16 + 16 * s) + 16 * s, otp_xor_ops(n, s))
     call = lambda: ox_k.otp_xor(*args)
     ms, timing = kernel_ms(call, "otp_xor_kernel")
     out["otp_xor"] = dict(
@@ -629,9 +654,9 @@ def _weights_kernels(cfg, dev, err) -> dict:
     if e:
         raise AssertionError(f"nh_hash_kernel_call differs from plain: {e}")
     del got
-    # payload in, (hi, lo) out; the key once.  Per pair two adds, a
-    # 64-bit multiply and an accumulate.
-    b_ms, b_by = bound(n * (4 * lanes + 8) + 4 * lanes, n * lanes // 2 * 4)
+    # payload in, (hi, lo) out; the key once.
+    b_ms, b_by = bound(n * (4 * lanes + 8) + 4 * lanes,
+                       nh_hash_ops(n, lanes))
     call = lambda: xm_k.nh_hash_kernel_call(payload, key)
     ms, timing = kernel_ms(call, "nh_hash_kernel")
     out["nh_hash_kernel_call"] = dict(
@@ -834,13 +859,14 @@ def phase_serve(arch, cfg, results: dict) -> dict:
 def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
                    tenants: bool = False, n_ticks: int = 3) -> tuple:
     """Device busy time and the top kernels over ``n_ticks`` steady
-    decode ticks (all 8 requests running), from a CUPTI trace, and the
-    engine, still running.  With ``tenants`` each tick also rotates a
-    tenant and reseals its pages."""
+    decode ticks (all 8 requests running), from a CUPTI trace, the
+    engine, still running, and its request ids.  With ``tenants`` each
+    tick also rotates a tenant and reseals its pages."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    eng, _ = _engine(arch, cfg, params, prompts, scheme, use_kernel, tenants)
+    eng, rids = _engine(arch, cfg, params, prompts, scheme, use_kernel,
+                        tenants)
     for _ in range(2):                     # admission + one warm tick
         eng.step()
     torch.cuda.synchronize()
@@ -856,7 +882,7 @@ def _profile_ticks(arch, cfg, params, prompts, scheme, use_kernel,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_ticks
     return {"tick_ms": plain_wall * 1e3,
-            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}, eng
+            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}, eng, rids
 
 
 CRYPTO_SYMBOLS = ("aes_ctr_keystream", "fused_crypt_mac", "otp_xor",
@@ -885,15 +911,99 @@ def _device_breakdown(prof, wall_ms: float, n: int, unit: str) -> dict:
             f"top_kernels_ms_per_{unit}": [(k[:90], v / n) for k, v in top]}
 
 
+def _expected_charges(eng, bucket: int) -> dict:
+    """``{kernel: [bytes, ops]}`` one decode call over ``bucket`` pages a
+    slot should charge, from the engine's page spec: per paged leaf a
+    read of every slot's window and a write of every slot's dirty page,
+    each an AES keystream for the base pads, the fused pass and a
+    keystream over the MAC finalization words (bytes as the kernels
+    phase's bounds count them)."""
+    from repro_torch.kernels.common import aes_ctr_ops, fused_crypt_mac_ops
+    s = eng.spec.cfg.block_bytes // 16
+    k = None if eng.registry is None else eng._bank().round_keys.shape[0]
+    aes, read, write = MIXED_KEY if k else SINGLE_KEY
+    out = {name: [0.0, 0.0] for name in (aes, read, write)}
+    for leaf in eng.spec.leaves:
+        for name, pages in ((read, eng.max_slots * bucket),
+                            (write, eng.max_slots)):
+            n = pages * leaf.n_blocks
+            out[aes][0] += 2 * aes_bytes(n, k)
+            out[aes][1] += 2 * aes_ctr_ops(n)
+            out[name][0] += fused_bytes(n, s, k)
+            out[name][1] += fused_crypt_mac_ops(n, s)
+    return out
+
+
+def _cost_profile(eng, rids, device_busy_ms: float, want_tokens) -> dict:
+    """``eng.profile()`` of the all-resident decode variant between two
+    ticks of a running engine, beside the device ms a traced tick took.
+    Gates: each kernel's charges are the bytes and operations of its
+    calls (:func:`_expected_charges`); the launch counts and the pool
+    bytes do not move; the engine then finishes with the serve phase's
+    tokens."""
+    import torch
+
+    from repro_torch import kernels
+    charged: dict = {}
+
+    def sink(name, source, nbytes, ops):
+        c = charged.setdefault(name, [0.0, 0.0])
+        c[0] += nbytes
+        c[1] += ops
+
+    launches = dict(kernels.LAUNCHES)
+    pool = _pool_bytes(eng)
+    kernels.COST_SINKS.append(sink)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        doc = eng.profile()
+        torch.cuda.synchronize()
+        profile_s = time.perf_counter() - t0
+    finally:
+        kernels.COST_SINKS.remove(sink)
+    if dict(kernels.LAUNCHES) != launches:
+        raise AssertionError("profile() moved the kernels' launch counts")
+    if not _same_pools([pool], [_pool_bytes(eng)]):
+        raise AssertionError("profile() changed the engine's pool")
+    prof = doc["profiles"][0]
+    want = (_expected_charges(eng, prof["bucket"]) if eng.spec.use_kernel
+            and eng.scheme == "seda" else {})
+    if charged != want:
+        raise AssertionError(f"kernel charges {charged} != their calls' "
+                             f"bytes and operations {want}")
+    done = eng.run()
+    if [done[r].generated for r in rids] != want_tokens:
+        raise AssertionError("the profiled engine's tokens differ from the "
+                             "serve phase's")
+    roof_ms = prof["roofline"]["roofline_s"] * 1e3
+    return {"profile_s": profile_s, "device_busy_ms": device_busy_ms,
+            "roofline_ms": roof_ms,
+            "device_busy_over_roofline": device_busy_ms / roof_ms,
+            "kernel_charges": charged, **prof}
+
+
 def phase_profile(arch, cfg, results: dict) -> dict:
+    import torch
     out = {}
     for key, scheme, use_kernel, tenants in (
             ("seda_kernel", "seda", True, False), ("off", "off", False, False),
             ("seda_kernel_4_tenants", "seda", True, True)):
-        out[key], _ = _profile_ticks(arch, cfg, results["params"],
-                                     results["prompts"], scheme, use_kernel,
-                                     tenants)
-    results["profile_seda"] = out["seda_kernel"]
+        out[key], eng, rids = _profile_ticks(
+            arch, cfg, results["params"], results["prompts"], scheme,
+            use_kernel, tenants)
+        out[key]["cost_profile"] = _cost_profile(
+            eng, rids, out[key]["device_busy_ms"], results["serve_tokens"])
+        del eng
+        torch.cuda.empty_cache()
+    for key, v in out.items():
+        ratios = (v["cost_profile"]["overhead_bytes_ratio"],
+                  v["cost_profile"]["overhead_flops_ratio"])
+        if not (all(r < 0.01 for r in ratios) if key == "off"
+                else all(r > 0.01 for r in ratios)):
+            raise AssertionError(f"{key}: overhead ratios {ratios}")
+    results["profile_seda"] = {k: v for k, v in out["seda_kernel"].items()
+                               if k != "cost_profile"}
     return out
 
 
@@ -2129,7 +2239,10 @@ def _shards_tamper(arch, cfg, params, prompts) -> dict:
 def _profile_cluster(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
     """Device busy time, idle share and launches per cluster tick over
     ``n_ticks`` steady ticks (all 8 requests running, 4 a shard), from a
-    CUPTI trace, as the profile phase takes the single engine's."""
+    CUPTI trace, as the profile phase takes the single engine's; then the
+    cluster's device-cost rollup (``ClusterEngine.profile()``), after
+    which both shards' pools and the cluster root MAC must be as they
+    were and the deferred root check must hold."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cl, _ = _cluster(arch, cfg, params, "seda", True, prompts=prompts)
@@ -2147,10 +2260,18 @@ def _profile_cluster(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
             cl.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_ticks
+    pools, root = _pools(cl), cl.sharded.root_mac
+    rollup = cl.profile()["rollup"]
+    if not (_same_pools(pools, _pools(cl))
+            and torch.equal(root, cl.sharded.root_mac)
+            and cl.deferred_check()):
+        raise AssertionError("the cluster profile moved a pool or the root "
+                             "MAC, or the deferred root check failed")
     del cl
     torch.cuda.empty_cache()
     return {"tick_ms": plain_wall * 1e3,
-            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick")}
+            **_device_breakdown(prof, wall * 1e3, n_ticks, "tick"),
+            "cost_rollup": rollup}
 
 
 def phase_shards(arch, cfg, results: dict) -> dict:
@@ -2523,8 +2644,8 @@ def _stage_ms(step, cfg, n_ticks: int) -> dict:
 def _profile_arch(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
     """The profile phase's tick breakdown, and each MoE or Mamba stage's
     device ms per tick from a second trace with the stages annotated."""
-    out, eng = _profile_ticks(arch, cfg, params, prompts, "seda", True,
-                              n_ticks=n_ticks)
+    out, eng, _ = _profile_ticks(arch, cfg, params, prompts, "seda", True,
+                                 n_ticks=n_ticks)
     out.update(_stage_ms(eng.step, cfg, n_ticks))
     return out
 

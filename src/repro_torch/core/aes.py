@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["SBOX_NP", "RCON_NP", "SHIFT_ROWS_PERM_NP", "key_expansion_np",
            "key_expansion", "sub_bytes", "shift_rows", "mix_columns",
-           "aes128_encrypt_block"]
+           "add_round_key", "aes128_encrypt_block", "aes128_encrypt"]
 
 
 def _build_sbox() -> np.ndarray:
@@ -118,6 +118,11 @@ def mix_columns(state: torch.Tensor) -> torch.Tensor:
     return torch.stack([b0, b1, b2, b3], dim=-1).reshape(state.shape)
 
 
+def add_round_key(state: torch.Tensor,
+                  round_key: torch.Tensor) -> torch.Tensor:
+    return state ^ round_key
+
+
 def aes128_encrypt_block(block: torch.Tensor,
                          round_keys: torch.Tensor) -> torch.Tensor:
     """Encrypt ``(..., 16)`` uint8 blocks with ``(11, 16)`` round keys
@@ -128,3 +133,9 @@ def aes128_encrypt_block(block: torch.Tensor,
         state = mix_columns(shift_rows(sub_bytes(state))) ^ rk[..., i, :]
     state = shift_rows(sub_bytes(state)) ^ rk[..., 10, :]
     return state.to(torch.uint8)
+
+
+def aes128_encrypt(blocks: torch.Tensor,
+                   round_keys: torch.Tensor) -> torch.Tensor:
+    """Batched AES-128 encryption of ``(n, 16)`` uint8 blocks."""
+    return aes128_encrypt_block(blocks, round_keys)

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core import aes, ctr
 
-__all__ = ["n_diversifiers", "diversifiers", "baes_otps", "baes_encrypt"]
+__all__ = ["n_diversifiers", "diversifiers", "baes_otps", "baes_encrypt",
+           "baes_decrypt", "shared_otp_encrypt"]
 
 _DIVERSIFIERS_PER_SCHEDULE = 10
 
@@ -100,3 +101,18 @@ def baes_encrypt(plaintext: torch.Tensor, round_keys: torch.Tensor,
                      n_segments=block_bytes // 16, key=key)
     return (plaintext.reshape(otps.shape) ^ otps).reshape(plaintext.shape)
 
+
+
+# XOR stream cipher: decryption == encryption.
+baes_decrypt = baes_encrypt
+
+
+def shared_otp_encrypt(plaintext: torch.Tensor, round_keys: torch.Tensor,
+                       counter_words: torch.Tensor, *,
+                       block_bytes: int) -> torch.Tensor:
+    """The INSECURE strawman (paper §III-B challenge 2): every 16 B
+    segment of a wide block reuses the same OTP.  Exists so tests and
+    examples can show the SECA attack succeeding against it."""
+    blocks = plaintext.reshape(-1, block_bytes // 16, 16)
+    base = ctr.ctr_keystream(round_keys, counter_words)      # (n, 16)
+    return (blocks ^ base[:, None, :]).reshape(plaintext.shape)

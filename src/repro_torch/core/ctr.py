@@ -13,7 +13,25 @@ import torch
 from repro_torch.core import aes
 from repro_torch.core.bytesutil import MASK32, i64
 
-__all__ = ["counter_blocks", "ctr_keystream", "ctr_encrypt", "ctr_decrypt"]
+__all__ = ["counter_blocks", "ctr_keystream", "ctr_encrypt", "ctr_decrypt",
+           "split_addr", "pack_counter_words"]
+
+
+def split_addr(addr) -> tuple:
+    """Split a Python int address into (hi, lo) u32 words (int64
+    tensors); a tensor of u32 addresses gives (zeros, addr)."""
+    if isinstance(addr, int):
+        return (torch.tensor((addr >> 32) & MASK32, dtype=torch.int64),
+                torch.tensor(addr & MASK32, dtype=torch.int64))
+    addr = i64(addr)
+    return torch.zeros_like(addr), addr
+
+
+def pack_counter_words(pa_hi, pa_lo, vn_hi, vn_lo) -> torch.Tensor:
+    """Pack four u32 words (ints or tensors, broadcast) into (..., 4)
+    int64 counter words."""
+    words = [i64(w) for w in (pa_hi, pa_lo, vn_hi, vn_lo)]
+    return torch.stack(torch.broadcast_tensors(*words), dim=-1)
 
 
 def counter_blocks(words: torch.Tensor) -> torch.Tensor:

@@ -22,12 +22,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.aes import SBOX_NP
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, charge
 from repro_torch.kernels.aes_ctr.ref import (
     aes_ctr_keystream_lanes_ref, aes_ctr_keystream_multi_lanes_ref)
-from repro_torch.kernels.common import (MAX_SHARED_BYTES, bind_c,
-                                        check_operand, check_shared_bytes,
-                                        on_cpu, raise_on_error, stream_handle)
+from repro_torch.kernels.common import (MAX_SHARED_BYTES, aes_ctr_ops,
+                                        bind_c, check_operand,
+                                        check_shared_bytes, on_cpu,
+                                        raise_on_error, stream_handle)
 
 __all__ = ["aes_ctr_keystream", "aes_ctr_keystream_multi", "te0_table_np",
            "t_table", "grid_blocks", "TABLE_SHARED_BYTES", "MAX_BANK_ROWS"]
@@ -99,11 +100,13 @@ def aes_ctr_keystream(counter_words: torch.Tensor,
     if n == 0:
         return out
     _check_count(n, "aes_ctr_keystream")
+    table = t_table(counter_words.device)
     rc = _entry()(counter_words.data_ptr(), round_keys.data_ptr(),
-                  t_table(counter_words.device).data_ptr(), out.data_ptr(),
-                  n, stream_handle())
+                  table.data_ptr(), out.data_ptr(), n, stream_handle())
     raise_on_error(rc, "aes_ctr_keystream")
     LAUNCHES["aes_ctr_keystream"] += 1
+    charge("aes_ctr_keystream", __file__,
+           (counter_words, round_keys, table, out), aes_ctr_ops(n))
     return out
 
 
@@ -136,10 +139,14 @@ def aes_ctr_keystream_multi(counter_words: torch.Tensor,
     if n == 0:
         return out
     _check_count(n, "aes_ctr_keystream_multi")
+    table = t_table(counter_words.device)
     rc = _entry("aes_ctr_keystream_multi", 5, 2)(
         counter_words.data_ptr(), bank_round_keys.data_ptr(),
-        row_idx.data_ptr(), t_table(counter_words.device).data_ptr(),
-        out.data_ptr(), n, k, stream_handle())
+        row_idx.data_ptr(), table.data_ptr(), out.data_ptr(), n, k,
+        stream_handle())
     raise_on_error(rc, "aes_ctr_keystream_multi")
     LAUNCHES["aes_ctr_keystream_multi"] += 1
+    charge("aes_ctr_keystream_multi", __file__,
+           (counter_words, bank_round_keys, row_idx, table, out),
+           aes_ctr_ops(n))
     return out

@@ -1,4 +1,11 @@
-"""Argument checks and launch plumbing shared by the kernel wrappers."""
+"""Argument checks, launch plumbing and operation counts shared by the
+kernel wrappers.
+
+The ``*_ops`` functions count the integer operations one launch does,
+from its shapes: what a profile charges a launch
+(:func:`repro_torch.kernels.charge`) and what the least time of a
+kernel on the card is computed from.
+"""
 
 from __future__ import annotations
 
@@ -7,12 +14,44 @@ import ctypes
 import torch
 
 __all__ = ["check_operand", "check_shared_bytes", "on_cpu", "stream_handle",
-           "raise_on_error", "bind_c", "MAX_SHARED_BYTES"]
+           "raise_on_error", "bind_c", "cdiv", "MAX_SHARED_BYTES",
+           "AES_OPS_PER_BLOCK", "aes_ctr_ops", "fused_crypt_mac_ops",
+           "otp_xor_ops", "nh_hash_ops"]
 
 # Shared memory one thread block may use on Hopper (227 KB of the SM's
 # 256 KB; above 48 KB only as dynamic shared memory, which the C entry
 # points opt into).
 MAX_SHARED_BYTES = 232448
+
+# One AES-128 block: 9 rounds x 16 B x 7 + the final round's 16 x 2 + the
+# first AddRoundKey's 16.
+AES_OPS_PER_BLOCK = 1056
+
+
+def aes_ctr_ops(n: int) -> int:
+    """B1 / B4: one AES block per counter."""
+    return n * AES_OPS_PER_BLOCK
+
+
+def fused_crypt_mac_ops(n: int, s: int) -> int:
+    """B2, B3, B5, B6 over ``n`` blocks of ``s`` segments: the XORs of
+    the pads per lane and the NH pairs of ct and binding."""
+    return n * (16 * s + 16)
+
+
+def otp_xor_ops(n: int, s: int) -> int:
+    """B7: two XORs per lane."""
+    return n * 4 * s * 2
+
+
+def nh_hash_ops(n: int, lanes: int) -> int:
+    """B8: per pair two adds, a 64-bit multiply and an accumulate."""
+    return n * lanes // 2 * 4
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division (the reference's ``kernels.common.cdiv``)."""
+    return -(-a // b)
 
 
 def on_cpu(*tensors) -> bool:

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, charge
 from repro_torch.kernels.common import (bind_c, check_operand,
-                                        check_shared_bytes, on_cpu,
+                                        check_shared_bytes,
+                                        fused_crypt_mac_ops, on_cpu,
                                         raise_on_error, stream_handle)
 from repro_torch.kernels.fused_crypt_mac.ref import (
     fused_crypt_mac_mixed_ref, fused_crypt_mac_ref,
@@ -58,6 +59,8 @@ def _launch(name: str, data, base, div, bind, key):
                n, s, stream_handle())
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
+    charge(name, __file__, (data, base, div, bind, key, out, nh),
+           fused_crypt_mac_ops(n, s))
     return out, nh
 
 
@@ -83,6 +86,9 @@ def _launch_mixed(name: str, data, base, div_bank, bind, key_bank, rows):
                out.data_ptr(), nh.data_ptr(), n, s, k, stream_handle())
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
+    charge(name, __file__,
+           (data, base, div_bank, bind, key_bank, rows, out, nh),
+           fused_crypt_mac_ops(n, s))
     return out, nh
 
 

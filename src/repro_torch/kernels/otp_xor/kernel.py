@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, charge
 from repro_torch.kernels.common import (MAX_SHARED_BYTES, bind_c,
-                                        check_operand, on_cpu,
+                                        check_operand, on_cpu, otp_xor_ops,
                                         raise_on_error, stream_handle)
 from repro_torch.kernels.otp_xor.ref import otp_xor_ref
 
@@ -46,4 +46,6 @@ def otp_xor(data_lanes: torch.Tensor, base_otp_lanes: torch.Tensor,
                div_lanes.data_ptr(), out.data_ptr(), n, s, stream_handle())
     raise_on_error(rc, "otp_xor")
     LAUNCHES["otp_xor"] += 1
+    charge("otp_xor", __file__, (data_lanes, base_otp_lanes, div_lanes, out),
+           otp_xor_ops(n, s))
     return out

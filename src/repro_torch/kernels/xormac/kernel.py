@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
-from repro_torch.kernels.common import (bind_c, check_operand, on_cpu,
-                                        raise_on_error, stream_handle)
+from repro_torch.kernels import LAUNCHES, build, charge
+from repro_torch.kernels.common import (bind_c, check_operand, nh_hash_ops,
+                                        on_cpu, raise_on_error,
+                                        stream_handle)
 from repro_torch.kernels.xormac.ref import nh_hash_ref
 
 __all__ = ["nh_hash_kernel_call", "MAX_PAIRS"]
@@ -47,4 +48,6 @@ def nh_hash_kernel_call(payload_u32: torch.Tensor,
                lanes, stream_handle())
     raise_on_error(rc, "nh_hash_kernel_call")
     LAUNCHES["nh_hash_kernel_call"] += 1
+    charge("nh_hash_kernel_call", __file__, (payload_u32, key_u32, out),
+           nh_hash_ops(n, lanes))
     return out

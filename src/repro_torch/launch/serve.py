@@ -61,7 +61,10 @@ Prometheus text), ``--audit-out`` (the hash-chained audit log as JSON
 lines), ``--slo-ttft-ms`` / ``--slo-p99-ticks`` (SLO targets; a hard
 breach exits with code 3; one monitor per shard) and ``--http-port``
 (``/healthz``, the worst shard's health, and ``/metrics`` on 127.0.0.1
-during the run).  ``--quiet`` keeps warnings
+during the run) and ``--profile-json`` (the protection-vs-model
+device-cost profile of the all-resident decode variant, after the run;
+with ``--shards``, every shard's and the cluster rollup).  ``--quiet``
+keeps warnings
 only, ``--json-logs`` writes one JSON record a line.
 
 ``--ckpt-dir D`` serves the newest checkpoint published in ``D``
@@ -78,8 +81,7 @@ Runs on the card unless ``--device cpu``.  Unlike the reference
 launcher, the paged engine is built with ``use_kernel=True``: on the
 card the ``seda`` crossings run the CUDA kernels (on the CPU, their
 plain versions).  Fresh weights are random, from a ``torch.Generator``
-seeded with ``--seed`` (not the reference's JAX draw).  Not accepted
-yet, because its module is not ported: ``--profile-json``.  The
+seeded with ``--seed`` (not the reference's JAX draw).  The
 reference's ``XLA_FLAGS`` device forcing for ``--shards`` has no torch
 counterpart: the shards share the one device.
 """
@@ -202,6 +204,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve /healthz (SLO health JSON) and /metrics "
                          "(Prometheus text) on 127.0.0.1:PORT during "
                          "the run (--engine paged only)")
+    ap.add_argument("--profile-json", default=None, metavar="PATH",
+                    help="write the protection-vs-model device-cost "
+                         "profile (obs/profiler.py) here after the run "
+                         "(--engine paged only; runs one decode call per "
+                         "bucket on scratch copies of the pool)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve the newest secure checkpoint in this "
                          "directory (verified with the --seed keys)")
@@ -224,13 +231,13 @@ def main(argv=None) -> dict:
                                    or args.metrics_prom or args.audit_out
                                    or args.audit_proof_out
                                    or args.slo_ttft_ms or args.slo_p99_ticks
-                                   or args.http_port
+                                   or args.http_port or args.profile_json
                                    or args.fault_tolerance):
         raise SystemExit("--trace-out/--metrics-json/--metrics-prom/"
                          "--audit-out/--audit-proof-out/--slo-*/"
-                         "--http-port/--fault-tolerance need --engine "
-                         "paged (the simple loop has no observability "
-                         "surface)")
+                         "--http-port/--profile-json/--fault-tolerance "
+                         "need --engine paged (the simple loop has no "
+                         "observability surface)")
     arch = get_arch(args.arch)
     if arch.kind == "encdec":
         raise SystemExit("use the decoder demo in examples/ for enc-dec")
@@ -553,6 +560,12 @@ def _dump_obs(eng, args) -> None:
         _log("trace", f"[serve] {len(doc['traceEvents'])} trace events -> "
              f"{args.trace_out}",
              path=args.trace_out, events=len(doc["traceEvents"]))
+    if args.profile_json:
+        doc = eng.profile()
+        with open(args.profile_json, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+        _log("profile", f"[serve] device-cost profile -> "
+             f"{args.profile_json}", path=args.profile_json)
     if args.audit_out:
         eng.audit.dump(args.audit_out)
         chain_ok = eng.audit.verify_chain()

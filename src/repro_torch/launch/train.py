@@ -11,8 +11,10 @@ Mirrors the reference launcher (``repro.launch.train``), flag for flag:
   * the SeDA boundary: under ``--scheme`` other than ``off`` the params
     live protected between steps (:class:`SecureExecutor`; on the card
     the narrow B-AES and the NH MACs run the CUDA kernels), and a failed
-    entry check aborts with ``INTEGRITY FAILURE``; checkpoints are always
-    encrypted and MACed;
+    entry check aborts with ``INTEGRITY FAILURE``, and so does a failed
+    check of the protected params before a checkpoint is written (the
+    reference writes that checkpoint); checkpoints are always encrypted
+    and MACed;
   * resume: ``--ckpt-dir`` restarts from the newest published checkpoint
     and the data pipeline's step.  As in the reference, a checkpoint
     holds the params and the data state only, so a resumed run restarts
@@ -55,6 +57,24 @@ def build(arch_name: str, smoke: bool) -> tuple:
     specs = (ed.encdec_specs(cfg) if arch.kind == "encdec"
              else lm_mod.lm_specs(cfg))
     return arch, cfg, specs
+
+
+def _checkpoint_params(executor, state, region, step: int):
+    """The params a checkpoint of ``step`` saves: ``state`` itself under
+    ``off``, else the protected state decrypted and checked.  A failed
+    check raises the step loop's ``INTEGRITY FAILURE`` before anything
+    is written; the reference drops the verdict here and re-encrypts a
+    tampered state into a checkpoint that loads as verified (ROADMAP
+    C1)."""
+    if executor.cfg.name == "off":
+        return state
+    params, ok = executor.unprotect(state, region)
+    if not bool(ok):
+        raise RuntimeError(
+            f"INTEGRITY FAILURE at step {step}: protected params failed "
+            f"their layer-MAC check before the checkpoint — aborting, "
+            f"nothing written")
+    return params
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -150,15 +170,13 @@ def main(argv=None) -> dict:
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"({dt * 1e3:.0f} ms)")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            p = (state if args.scheme == "off"
-                 else executor.unprotect(state, region)[0])
+            p = _checkpoint_params(executor, state, region, step + 1)
             path = save_checkpoint(args.ckpt_dir, step + 1, p, keys,
                                    extra_state={"data": data.state_dict()})
             print(f"[train] secure checkpoint -> {path}")
 
     if args.ckpt_dir:
-        p = (state if args.scheme == "off"
-             else executor.unprotect(state, region)[0])
+        p = _checkpoint_params(executor, state, region, args.steps)
         save_checkpoint(args.ckpt_dir, args.steps, p, keys,
                         extra_state={"data": data.state_dict()})
     return {"first_loss": history[0] if history else None,

@@ -18,17 +18,28 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.core.layout import tree_flatten, tree_unflatten
 
-__all__ = ["ParamSpec", "spec", "init_params", "tree_map", "rms_norm", "rope",
-           "dense", "masked_nll", "unstack", "maybe_remat", "DTYPES"]
+__all__ = ["ParamSpec", "ShapeDtype", "spec", "init_params", "tree_map",
+           "shape_structs", "rms_norm", "layer_norm", "rope", "dense",
+           "masked_nll", "unstack", "maybe_remat", "DTYPES"]
 
 DEFAULT_DTYPE = "bfloat16"
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype, allocating nothing (torch has no
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 class ParamSpec(NamedTuple):
     shape: tuple
     dtype: str
     init: str = "fan_in"   # fan_in | zeros | ones | embed
+
+    def struct(self) -> ShapeDtype:
+        return ShapeDtype(self.shape, DTYPES[self.dtype])
 
 
 def spec(shape, dtype=DEFAULT_DTYPE, init="fan_in") -> ParamSpec:
@@ -42,6 +53,11 @@ def tree_map(fn, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamSpec):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def shape_structs(specs: Any) -> Any:
+    """Spec tree -> :class:`ShapeDtype` tree (no allocation)."""
+    return tree_map(lambda s: s.struct(), specs)
 
 
 def _init_leaf(s: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
@@ -78,6 +94,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * scale.float()
+            + bias.float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *,

@@ -82,6 +82,10 @@ class LMConfig:
     n_image_patches: int = 0
     d_vision: int = 0
 
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
     def __post_init__(self):
         if not self.head_dim:
             object.__setattr__(self, "head_dim",

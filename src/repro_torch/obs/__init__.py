@@ -1,8 +1,7 @@
 """Observability layer of the port: host-side and dependency-free.
 
-The port's own copies of ``repro.obs.metrics``, ``trace``, ``audit``
-and ``slo`` (the JAX package's ``profiler``, which attributes XLA HLO
-costs, is not ported):
+The port's own copies of ``repro.obs.metrics``, ``trace``, ``audit``,
+``slo`` and ``profiler``:
 
 * :mod:`repro_torch.obs.metrics` — a declared-metrics registry
   (counters, gauges, histograms) behind the engine's ``stats`` dict API
@@ -14,6 +13,10 @@ costs, is not ported):
   edit, drop or reorder of the log itself;
 * :mod:`repro_torch.obs.slo` — the per-tenant SLO watchdog (TTFT, p99
   tick latency, integrity-failure rate, stuck ticks).
+* :mod:`repro_torch.obs.profiler` — the protection-vs-model device-cost
+  split of one decode call (aten ops under a dispatch mode, the CUDA
+  kernels' own charges), its H100 roofline, and the engine gauges that
+  read it.
 
 Off by default on the hot path: a counter costs one attribute bump,
 gauges are sampled at snapshot time, and span timing runs only on an

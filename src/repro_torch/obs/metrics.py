@@ -4,8 +4,8 @@ The port's copy of ``repro.obs.metrics`` (the JAX package's module
 imports no JAX, but the port imports nothing of it).  Every metric is
 **declared once** with a help string; the canonical name sets below
 (:data:`ENGINE_COUNTERS`, :data:`CLUSTER_COUNTERS`, ...) are the
-reference's, less the three device-cost profiler gauges, whose XLA HLO
-attribution is not ported.
+reference's, help strings included (the profiler gauges' "HLO" reads as
+the port's attributed aten ops).
 
 Compatibility: :class:`StatsView` wraps a registry's counters in the
 old dict API (``stats["admitted"] += 1``, ``stats.items()``,
@@ -95,6 +95,13 @@ ENGINE_GAUGES = {
     "tenant_resident_pages": "pool pages owned per tenant (label: tenant)",
     "prefix_cache_pages": "prefix-cache entries resident (pages)",
     "prefix_cache_refs": "total refcount pins across cache entries",
+    "protection_overhead_ratio": "attributed protection/model HLO bytes "
+                                 "per decode variant (label: bucket)",
+    "protection_overhead_flops_ratio": "attributed protection/model HLO "
+                                       "flops per decode variant "
+                                       "(label: bucket)",
+    "roofline_utilization": "attributed roofline time / measured p50 "
+                            "tick per decode variant (label: bucket)",
 }
 
 ENGINE_HISTOGRAMS = {

@@ -31,8 +31,8 @@ batching, a paged MAC-protected pool, optional tenant key domains):
 
 Shards are logical on one device by default (separate pools on the
 engine's device, the card unless ``device="cpu"``); ``devices=`` places
-shard ``s`` on ``devices[s]``.  The reference's device-cost ``profile``
-is not ported.
+shard ``s`` on ``devices[s]``.  :meth:`profile` rolls the shard
+engines' device-cost profiles up into one.
 """
 
 from __future__ import annotations
@@ -196,6 +196,37 @@ class ClusterEngine(SubmitAPI):
         block (its samples carry its ``shard=`` label)."""
         return "".join([self.metrics.prometheus()]
                        + [e.prometheus() for e in self.engines])
+
+    def profile(self, buckets=None, uniform: bool = False,
+                refresh: bool = False) -> dict:
+        """Per-shard device-cost profiles + the cluster rollup.
+
+        ``shards`` carries each engine's :meth:`SecureServingEngine.
+        profile` export (each labeled with its ``shard`` id, matching
+        the ``shard=`` labels on the per-shard profiler gauges), each
+        run on scratch copies of that shard's own pool, so the shard
+        roots and the cluster root stay as they were; ``rollup`` sums
+        the attributed protection/model bytes+flops across shards and
+        recomputes the combined overhead ratios.
+        """
+        shards = [e.profile(buckets, uniform, refresh)
+                  for e in self.engines]
+        rollup = {k: {"bytes": 0.0, "flops": 0.0}
+                  for k in ("protection", "model", "other", "total")}
+        for shard in shards:
+            for prof in shard["profiles"]:
+                for k in rollup:
+                    rollup[k]["bytes"] += prof[k]["bytes"]
+                    rollup[k]["flops"] += prof[k]["flops"]
+        model = rollup["model"]
+        rollup["overhead_bytes_ratio"] = (
+            rollup["protection"]["bytes"] / model["bytes"]
+            if model["bytes"] else 0.0)
+        rollup["overhead_flops_ratio"] = (
+            rollup["protection"]["flops"] / model["flops"]
+            if model["flops"] else 0.0)
+        return {"scheme": self.engines[0].scheme if self.engines else None,
+                "shards": shards, "rollup": rollup}
 
     def export_trace(self, path: Optional[str] = None) -> dict:
         """One Chrome trace of the cluster's and every shard's spans

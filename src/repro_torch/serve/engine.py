@@ -59,7 +59,9 @@ histograms; :meth:`snapshot`, :meth:`prometheus`).  ``trace=True`` (or a
 host-clock spans (:meth:`export_trace`); ``audit=True`` (or a shared
 :class:`~repro_torch.obs.audit.AuditLog`) keeps a hash-chained log of
 security events.  Every MAC-gate verdict the engine syncs goes through
-``PageIO.report_verdict``, once per gate.
+``PageIO.report_verdict``, once per gate.  :meth:`profile` splits a
+decode variant's device cost into protection and model
+(:mod:`repro_torch.obs.profiler`) and caches it for three lazy gauges.
 
 **Fault containment.**  An integrity failure raises
 :class:`IntegrityError`, with the failing gate (``op``) and pages in
@@ -98,6 +100,7 @@ paged leaf at all (mamba2) is refused with the reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -117,6 +120,7 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import tree_map
 from repro_torch.obs import audit as audit_mod
 from repro_torch.obs import metrics as metrics_mod
+from repro_torch.obs import profiler as profiler_mod
 from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve import merkle_pool as mkp
@@ -502,8 +506,7 @@ class SecureServingEngine(SubmitAPI):
         histograms exist only with ``trace``: the tick phases are then
         wrapped per instance, so a default engine makes no timing call.
         ``audit`` (``True`` or a shared :class:`AuditLog`) turns on the
-        hash-chained security log.  The reference's three device-cost
-        profiler gauges are not ported.
+        hash-chained security log.
         """
         self.metrics = metrics_mod.MetricsRegistry()
         for name, help_ in metrics_mod.ENGINE_COUNTERS.items():
@@ -533,6 +536,30 @@ class SecureServingEngine(SubmitAPI):
                                fn=lambda: self.prefix_cache.pages_used)
             self.metrics.gauge("prefix_cache_refs", g["prefix_cache_refs"],
                                fn=lambda: self.prefix_cache.total_refs)
+        # Device-cost profiler gauges sample the profile() cache only: an
+        # engine that never called profile() exposes empty dicts, and a
+        # snapshot never runs a decode.
+        self._cost_profiles: dict = {}
+
+        def _profile_gauge(attr):
+            return lambda: {
+                f"{b}{'u' if u else ''}": getattr(p, attr)
+                for (b, u), p in sorted(self._cost_profiles.items())}
+
+        self.metrics.gauge(
+            "protection_overhead_ratio", g["protection_overhead_ratio"],
+            label="bucket", fn=_profile_gauge("overhead_bytes_ratio"))
+        self.metrics.gauge(
+            "protection_overhead_flops_ratio",
+            g["protection_overhead_flops_ratio"],
+            label="bucket", fn=_profile_gauge("overhead_flops_ratio"))
+        self.metrics.gauge(
+            "roofline_utilization", g["roofline_utilization"],
+            label="bucket",
+            fn=lambda: {
+                f"{b}{'u' if u else ''}":
+                    p.roofline().get("utilization", 0.0)
+                for (b, u), p in sorted(self._cost_profiles.items())})
         h = metrics_mod.ENGINE_HISTOGRAMS
         self._ttft_ticks = self.metrics.histogram("ttft_ticks",
                                                   h["ttft_ticks"])
@@ -1112,6 +1139,79 @@ class SecureServingEngine(SubmitAPI):
     def deferred_check(self) -> bool:
         """Model-level deferred MAC over the whole pool (paper Table I)."""
         return bool(kvp.deferred_pool_check(self.pool, self.spec))
+
+    # -- device-cost profile ------------------------------------------------
+
+    def decode_cost_analysis(self, bucket: Optional[int] = None) -> dict:
+        """Attributed cost of one batched decode call: ``{"flops": ...,
+        "bytes accessed": ...}``, the keys of XLA's cost analysis that
+        the reference returns.  ``bucket`` selects the page-count
+        variant (default: the all-resident ``pages_per_slot`` window)."""
+        p = profiler_mod.profile_decode(self, bucket)
+        return {"flops": p.total["flops"], "bytes accessed": p.total["bytes"]}
+
+    def _decode_analysis_args(self, bucket: int) -> list:
+        """Shape-representative positional args of one decode variant
+        (the reference's zeros and ones): every slot active at length 1
+        over page 0, epoch 1; with a registry, every page and write on
+        bank row 0; with on-chip state, every slot's column."""
+        s, dev = self.max_slots, self.device
+        args = [torch.zeros((s, bucket), dtype=torch.int64, device=dev),
+                torch.ones((s,), dtype=torch.int64, device=dev),
+                torch.ones((s,), dtype=torch.bool, device=dev),
+                torch.zeros((s, 1), dtype=torch.int64, device=dev), 1,
+                None, None, None]
+        if self.registry is not None:
+            bank = self._bank()
+            zeros = np.zeros((s * bucket,), np.int64)
+            args[5] = kvp.PageKeyCtx.make(bank, zeros, zeros, zeros)
+            zeros = np.zeros((s,), np.int64)
+            args[6] = kvp.PageKeyCtx.make(bank, zeros, zeros, zeros)
+        if self.onchip_idx:
+            args[7] = torch.arange(s, dtype=torch.int64, device=dev)
+        return args
+
+    @contextlib.contextmanager
+    def _detached_decode(self):
+        """Run a decode call against clones of the pool and the on-chip
+        state, with the pool's write listeners detached: what the call
+        writes reaches no Merkle level or cluster root, and is dropped
+        on exit."""
+        pool, onchip = self._pool, self.onchip
+        listeners = self.page_io.write_listeners
+        self._pool = kvp.PagedKVPool(*(
+            tuple(t.clone() for t in f) if isinstance(f, tuple) else f.clone()
+            for f in pool))
+        self.onchip = [t.clone() for t in onchip]
+        self.page_io.write_listeners = []
+        try:
+            yield
+        finally:
+            self._pool, self.onchip = pool, onchip
+            self.page_io.write_listeners = listeners
+
+    def profile(self, buckets=None, uniform: bool = False,
+                refresh: bool = False) -> dict:
+        """Attributed device-cost profile (protection vs. model) of the
+        decode variants — see :mod:`repro_torch.obs.profiler`.
+
+        Runs each requested (bucket, uniform) variant once on first use,
+        on scratch copies of the engine's state, and caches the
+        :class:`~repro_torch.obs.profiler.CostProfile`; the
+        ``protection_overhead_ratio`` / ``roofline_utilization`` lazy
+        gauges sample this cache, so snapshots never run a decode.
+        """
+        if buckets is None:
+            buckets = [self.pages_per_slot]
+        profiles = []
+        for bucket in buckets:
+            key = (int(bucket), bool(uniform))
+            if refresh or key not in self._cost_profiles:
+                self._cost_profiles[key] = profiler_mod.profile_decode(
+                    self, int(bucket), bool(uniform))
+            profiles.append(self._cost_profiles[key])
+        return {"scheme": self.scheme, "shard": self.shard_id,
+                "profiles": [p.to_dict() for p in profiles]}
 
     def _deferred_check(self) -> None:
         self.stats["deferred_checks"] += 1

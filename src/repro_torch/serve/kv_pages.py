@@ -113,6 +113,12 @@ class PageSpec(NamedTuple):
         """Write sink for inactive slots / unallocated table entries."""
         return self.n_pages
 
+    @property
+    def blocks_per_read(self) -> int:
+        """optBlks touched by one full gather (tree-traffic emulation)."""
+        return (sum(leaf.n_blocks for leaf in self.leaves)
+                * self.max_slots * self.pages_per_slot)
+
 
 class PagedKVPool(NamedTuple):
     """The cache as it lives across the boundary, plus its metadata."""

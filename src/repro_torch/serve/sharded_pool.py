@@ -185,6 +185,28 @@ class ShardedKVPool:
         shard roots with no key."""
         return mkp.compress_roots(self.merkle_roots())
 
+    @property
+    def n_shards(self) -> int:
+        return len(self.engines)
+
+    @property
+    def pools(self) -> list:
+        return [e.pool for e in self.engines]
+
+    @property
+    def specs(self) -> list:
+        return [e.spec for e in self.engines]
+
+    # -- aggregate bookkeeping ----------------------------------------------
+
+    def free_pages(self, shard: int) -> int:
+        """Shard-local free list depth (allocation never leaves a shard)."""
+        return len(self.engines[shard].free_pages)
+
+    def occupancy(self) -> list:
+        """Per-shard resident page count (n_pages - free)."""
+        return [e.n_pages - len(e.free_pages) for e in self.engines]
+
     # -- deferred verification ----------------------------------------------
 
     def deferred_root_check(self) -> bool:

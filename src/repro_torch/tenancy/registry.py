@@ -200,6 +200,10 @@ class TenantRegistry:
             raise KeyError(f"tenant index {index} not registered")
         return self.max_tenants * self.retain + index
 
+    def cache_keys_for(self, index: int):
+        """``SecureKeys`` of a tenant's prefix-cache binding."""
+        return self._by_index[index].keyset.cache_keys()
+
     def attach_rotation_hook(self, hook, *, pre: bool = False) -> None:
         """Register ``hook(tenant, new_epoch)`` to run around rotations.
 

@@ -21,6 +21,9 @@ equals the sequential recurrence, and jamba's smoke config (attention
 pages beside its Mamba state) gives the CPU's tokens, its writes on the
 fused kernel.  One seda train step of seamless's smoke config on the
 card gives the CPU's loss and params, its crossings on B1, B7 and B8.
+Each wrapper charges an active cost profile its launch's operand and
+output bytes and its operation count; a seda engine profiled between
+ticks on the card keeps its tokens and pools.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -845,3 +848,117 @@ def test_secure_train_step_on_the_card_equals_cpu(card):
         assert a.dtype == b.dtype
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
                                    rtol=0)
+
+
+def _charges(fn) -> tuple:
+    """``(fn(), {kernel: [bytes, ops, launches]})`` with a cost sink
+    attached, as a profile attaches one."""
+    from repro_torch import kernels
+    got: dict = {}
+
+    def sink(name, source, nbytes, ops):
+        c = got.setdefault(name, [0.0, 0.0, 0])
+        c[0] += nbytes
+        c[1] += ops
+        c[2] += 1
+
+    kernels.COST_SINKS.append(sink)
+    try:
+        out = fn()
+    finally:
+        kernels.COST_SINKS.remove(sink)
+    return out, got
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def test_kernel_charges_are_operands_outputs_and_op_counts(card):
+    """Each wrapper charges one launch its operands' and outputs' bytes
+    (the 1 KB T-table among the AES operands) and the shared op counts;
+    with no sink attached it charges nothing."""
+    from repro_torch.kernels import common
+    rng = np.random.default_rng(21)
+    keys = SecureKeys.derive(21, device=card)
+    _, bank_rk, bank_hk, _ = _bank(card, 12)
+    n, s, lanes = 1000, 4, 24
+    words, rows = _u32(rng, (n, 4), card), _rows(rng, n, 12, card, True)
+    data, base, bind = (_u32(rng, (n, 4 * s), card), _u32(rng, (n, 4), card),
+                        _u32(rng, (n, 8), card))
+    div = fused_ops._div_lanes(keys.round_keys, s)
+    key = keys.hash_key[: 4 * s + 8].contiguous()
+    div_bank = fused_ops._div_bank(bank_rk, s)
+    key_bank = bank_hk[:, : 4 * s + 8].contiguous()
+    payload, nh_key = _u32(rng, (n, lanes), card), keys.hash_key[:lanes]
+    table = 1024.0
+    cases = {
+        "aes_ctr_keystream": (
+            lambda: aes_k.aes_ctr_keystream(words, keys.round_keys),
+            _nbytes(words, keys.round_keys, words) + table,
+            common.aes_ctr_ops(n)),
+        "aes_ctr_keystream_multi": (
+            lambda: aes_k.aes_ctr_keystream_multi(words, bank_rk, rows),
+            _nbytes(words, bank_rk, rows, words) + table,
+            common.aes_ctr_ops(n)),
+        "fused_crypt_mac": (
+            lambda: fused.fused_crypt_mac(data, base, div, bind, key),
+            _nbytes(data, base, div, bind, key, data) + n * 8,
+            common.fused_crypt_mac_ops(n, s)),
+        "fused_crypt_mac_write_mixed": (
+            lambda: fused.fused_crypt_mac_write_mixed(
+                data, base, div_bank, bind, key_bank, rows),
+            _nbytes(data, base, div_bank, bind, key_bank, rows, data)
+            + n * 8, common.fused_crypt_mac_ops(n, s)),
+        "otp_xor": (
+            lambda: ox_k.otp_xor(data, base, div),
+            _nbytes(data, base, div, data), common.otp_xor_ops(n, s)),
+        "nh_hash_kernel_call": (
+            lambda: xm_k.nh_hash_kernel_call(payload, nh_key),
+            _nbytes(payload, nh_key) + n * 8,
+            common.nh_hash_ops(n, lanes)),
+    }
+    for name, (call, nbytes, ops) in cases.items():
+        _, got = _charges(call)
+        assert got == {name: [nbytes, float(ops), 1]}, name
+        reset_launches()
+        call()
+        assert LAUNCHES[name] == 1, name
+
+
+def test_profiled_seda_tick_on_the_card_keeps_its_tokens(card):
+    """A smoke engine on the card profiled between two ticks (kernels on)
+    gives the unprofiled engine's tokens and pools; the profile charged
+    B1-B3 and left the launch counts alone."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import SecureServingEngine
+    params = _smoke_params()
+    arch = get_arch("minitron-4b")
+    cfg = arch.make_smoke_config()
+    runs = []
+    for profiled in (True, False):
+        eng = SecureServingEngine(
+            arch, cfg, params, scheme="seda", use_kernel=True, max_slots=2,
+            page_tokens=4, pages_per_slot=4, device=card)
+        rids = [eng.submit(prompt=p, max_new_tokens=6)
+                for p in ([5, 9, 3, 7, 1], [2, 8, 6])]
+        eng.step()
+        eng.step()
+        charged = {}
+        if profiled:
+            launches = dict(LAUNCHES)
+            doc, charged = _charges(eng.profile)
+            assert dict(LAUNCHES) == launches
+            prof = doc["profiles"][0]
+            assert prof["overhead_bytes_ratio"] > 0.01
+            assert prof["coverage"]["bytes"] >= 0.95
+        done = eng.run()
+        runs.append(([done[r].generated for r in rids], charged,
+                     [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
+                                        eng.pool.page_vns,
+                                        eng.pool.pool_mac)]))
+    (tokens, charged, pool), (want_tokens, _, want_pool) = runs
+    assert tokens == want_tokens
+    assert all(torch.equal(a, b) for a, b in zip(pool, want_pool))
+    assert set(charged) == {"aes_ctr_keystream", "fused_crypt_mac",
+                            "fused_crypt_mac_write"}

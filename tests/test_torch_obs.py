@@ -2,8 +2,8 @@
 audit and SLO wiring) against the JAX package.
 
 * The registry, histogram, tracer and audit-chain units of
-  ``tests/test_obs.py`` on the port's copies; the declared names equal
-  the reference's, less the three device-cost profiler gauges.
+  ``tests/test_obs.py`` on the port's copies; the declared names and
+  help strings equal the reference's.
 * Engine parity for all 7 schemes: two tenants, a rotation every tick
   (so eager reseals fire), a prefix cache (insert, hit, copy-on-write,
   reseal-on-share), ``audit=True`` and ``trace=True`` on both sides.  Tokens, every
@@ -92,12 +92,7 @@ class TestRegistry:
         assert metrics_mod.ENGINE_COUNTERS == j_metrics.ENGINE_COUNTERS
         assert metrics_mod.ENGINE_HISTOGRAMS == j_metrics.ENGINE_HISTOGRAMS
         assert metrics_mod.CLUSTER_COUNTERS == j_metrics.CLUSTER_COUNTERS
-        profiler = {"protection_overhead_ratio",
-                    "protection_overhead_flops_ratio",
-                    "roofline_utilization"}
-        assert metrics_mod.ENGINE_GAUGES == {
-            k: v for k, v in j_metrics.ENGINE_GAUGES.items()
-            if k not in profiler}
+        assert metrics_mod.ENGINE_GAUGES == j_metrics.ENGINE_GAUGES
         assert STAT_NAMES == tuple(j_metrics.ENGINE_COUNTERS)
 
     def test_counters_snapshot_and_reset(self):
@@ -418,7 +413,16 @@ def test_snapshot_prometheus_and_proof_audit(smoke, prompts):
     text = eng.prometheus()
     assert "# TYPE repro_admitted counter" in text
     assert 'repro_tenant_resident_pages{tenant="a"} 0' in text
-    assert "protection_overhead_ratio" not in text
+    # An engine that never profiled prints the reference's declarations
+    # of the three profiler gauges, and no sample.
+    j_reg = j_metrics.MetricsRegistry()
+    for name in ("protection_overhead_ratio",
+                 "protection_overhead_flops_ratio", "roofline_utilization"):
+        j_reg.gauge(name, j_metrics.ENGINE_GAUGES[name], label="bucket",
+                    fn=dict)
+        assert f"repro_{name}{{" not in text
+    for line in j_reg.prometheus().splitlines():
+        assert line in text.splitlines()
     with pytest.raises(ValueError, match="trace"):
         _engine(smoke, scheme="off").export_trace()
 

@@ -478,12 +478,12 @@ def test_launcher_argument_errors():
     with pytest.raises(SystemExit, match="--tenants"):
         launch.main(["--smoke", "--device", "cpu", "--rotate-every", "2"])
     # --ckpt-dir is accepted (tests/test_torch_checkpoint.py serves one);
-    # the simple loop takes no tenants, shards or paged-engine flags, and
-    # the device-cost profile is not ported.
+    # the simple loop takes no tenants, shards or paged-engine flags, the
+    # device-cost profile included.
     for flag in (["--engine", "simple", "--tenants", "2"],
                  ["--engine", "simple", "--fault-tolerance"],
                  ["--engine", "simple", "--shards", "2"],
-                 ["--profile-json", "p.json"]):
+                 ["--engine", "simple", "--profile-json", "p.json"]):
         with pytest.raises(SystemExit):
             launch.main(["--smoke", "--device", "cpu", *flag])
     with pytest.raises(ValueError, match="pool"):

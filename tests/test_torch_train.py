@@ -20,9 +20,12 @@ smoke configs.
 * The secure step is transparent under all 7 schemes: the state it
   produces, unprotected, is the ``off`` step's params bit for bit.
 * The launcher: each smoke config trains; a flipped ciphertext byte
-  aborts with ``INTEGRITY FAILURE``; the port and the reference resume
-  from copies of one reference-written checkpoint and give the same
-  first and last losses (rtol 1e-4).
+  aborts with ``INTEGRITY FAILURE``, also when it lands after the last
+  step a checkpoint reads (the reference writes a checkpoint of the
+  tampered state that loads as verified, ROADMAP §C1); an untampered
+  run's checkpoints hold its protected params; the port and the
+  reference resume from copies of one reference-written checkpoint and
+  give the same first and last losses (rtol 1e-4).
 """
 
 import shutil
@@ -42,6 +45,7 @@ from repro.serve import serve_step as j_serve_step
 from repro.train import grad_comp as j_gc
 from repro.train import optimizer as j_opt
 from repro.train.train_step import make_loss_fn as j_make_loss_fn
+from repro_torch.checkpoint.secure_ckpt import latest_step, load_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.layout import tree_flatten
@@ -453,6 +457,64 @@ def test_launcher_aborts_on_a_flipped_ciphertext_byte(monkeypatch):
                     "--scheme", "seda", "--steps", "3", "--global-batch",
                     "2", "--seq-len", "16", "--log-every", "100"])
     assert calls == [0, 1, 2]        # step 1 ran, then the loop aborted
+
+
+SMOLLM_RUN = ["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+              "--scheme", "seda", "--steps", "2", "--global-batch", "2",
+              "--seq-len", "16", "--log-every", "100"]
+
+
+def _recording_protect(monkeypatch, flip_call=None) -> list:
+    """Patch ``SecureExecutor.protect`` to keep every state it returns,
+    flipping ciphertext 0's byte 0 in the ``flip_call``-th (1-based)."""
+    protect = SecureExecutor.protect
+    states = []
+
+    def recording(self, tree, spec, *, step=0):
+        state = protect(self, tree, spec, step=step)
+        states.append((self, spec, state))
+        if len(states) == flip_call:
+            state.ciphertexts[0][0] ^= 0x01
+        return state
+
+    monkeypatch.setattr(SecureExecutor, "protect", recording)
+    return states
+
+
+@pytest.mark.parametrize("ckpt_every,flip_call,step", [
+    ("100", 3, 2),      # after the last step: the final save
+    ("1", 2, 1),        # after step 0: the save of step 1
+])
+def test_launcher_refuses_to_checkpoint_a_tampered_state(
+        monkeypatch, tmp_path, ckpt_every, flip_call, step):
+    states = _recording_protect(monkeypatch, flip_call)
+    with pytest.raises(RuntimeError,
+                       match=f"INTEGRITY FAILURE at step {step}:"):
+        train.main(SMOLLM_RUN + ["--ckpt-dir", str(tmp_path),
+                                 "--ckpt-every", ckpt_every])
+    assert len(states) == flip_call      # no step read the tampered state
+    assert latest_step(str(tmp_path)) is None
+    assert not any(tmp_path.iterdir())
+
+
+def test_launcher_checkpoints_an_untampered_run(monkeypatch, tmp_path):
+    want = train.main(SMOLLM_RUN)
+    states = _recording_protect(monkeypatch)
+    got = train.main(SMOLLM_RUN + ["--ckpt-dir", str(tmp_path),
+                                   "--ckpt-every", "1"])
+    assert got == want
+    assert latest_step(str(tmp_path)) == 2
+    _, _, specs = train.build("smollm-135m", True)
+    keys = SecureKeys.derive(0, device="cpu")
+    for step in (1, 2):
+        executor, spec, state = states[step]
+        params, ok = executor.unprotect(state, spec)
+        assert bool(ok)
+        loaded, manifest = load_checkpoint(
+            str(tmp_path / f"step_{step:08d}"), specs, keys, device="cpu")
+        assert manifest["step"] == step
+        for a, b in zip(tree_flatten(loaded)[0], tree_flatten(params)[0]):
+            assert torch.equal(a, b)
 
 
 def test_launcher_resumes_a_reference_checkpoint_as_the_reference(tmp_path):
