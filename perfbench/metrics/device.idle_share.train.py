@@ -1,0 +1,5 @@
+"""Percent of the traced steps' wall time with no operation on the card (CUPTI, union of device intervals)."""
+
+
+def read(r):
+    return r.idle_share()
