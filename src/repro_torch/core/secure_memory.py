@@ -35,6 +35,7 @@ from repro_torch.core.layout import (SEGMENT_BYTES, AddressMap,
                                      tree_unflatten)
 from repro_torch.kernels.otp_xor import ops as otp_ops
 from repro_torch.kernels.xormac import ops as xormac_ops
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["SecureKeys", "RegionSpec", "SecureState", "protect", "unprotect",
            "make_region_spec"]
@@ -127,8 +128,9 @@ def _crypt(buf: torch.Tensor, keys: SecureKeys, spec: RegionSpec, layout,
     leaf's padded bytes; the XOR cipher decrypts the same way."""
     n_segments = spec.block_bytes // SEGMENT_BYTES
     n_blocks = buf.shape[0] // spec.block_bytes
-    counters = _leaf_counters(layout, n_blocks, vn_lo, spec.block_bytes,
-                              buf.device)
+    with trace_mod.span("crossing.bind"):
+        counters = _leaf_counters(layout, n_blocks, vn_lo, spec.block_bytes,
+                                  buf.device)
     if spec.use_baes and not baes.n_diversifiers(n_segments):
         return otp_ops.baes_encrypt_kernel(buf, keys.round_keys, counters,
                                            block_bytes=spec.block_bytes)
@@ -156,10 +158,11 @@ def _leaf_mac(ct: torch.Tensor, keys: SecureKeys, spec: RegionSpec, layout,
     n_blocks = ct.shape[0] // spec.block_bytes
     scalar = lambda v: torch.tensor(v, dtype=torch.int64,  # noqa: E731
                                     device=ct.device)
-    binding = mac.Binding.make(
-        _leaf_pa(layout, n_blocks, spec.block_bytes, ct.device),
-        scalar(vn_lo), scalar(layout.layer_id), scalar(layout.fmap_idx),
-        torch.arange(n_blocks, dtype=torch.int64, device=ct.device))
+    with trace_mod.span("crossing.bind"):
+        binding = mac.Binding.make(
+            _leaf_pa(layout, n_blocks, spec.block_bytes, ct.device),
+            scalar(vn_lo), scalar(layout.layer_id), scalar(layout.fmap_idx),
+            torch.arange(n_blocks, dtype=torch.int64, device=ct.device))
     blocks = ct.reshape(n_blocks, spec.block_bytes)
     if spec.mac_engine == "nh":
         macs = xormac_ops.block_macs_kernel(
@@ -174,8 +177,9 @@ def _leaf_mac(ct: torch.Tensor, keys: SecureKeys, spec: RegionSpec, layout,
 
 def _protect_leaf(leaf: torch.Tensor, keys: SecureKeys, spec: RegionSpec,
                   layout, vn_lo: int) -> tuple:
-    buf = tensor_to_bytes(leaf.to(keys.key.device),
-                          multiple=spec.block_bytes)
+    with trace_mod.span("crossing.to_bytes"):
+        buf = tensor_to_bytes(leaf.to(keys.key.device),
+                              multiple=spec.block_bytes)
     ct = _crypt(buf, keys, spec, layout, vn_lo)
     return ct, _leaf_mac(ct, keys, spec, layout, vn_lo)
 
@@ -184,17 +188,18 @@ def protect(tree: Any, keys: SecureKeys, spec: RegionSpec, *,
             step=0) -> SecureState:
     """Encrypt + MAC a tree for residency in untrusted memory, on the
     keys' device."""
-    leaves, _ = tree_flatten(tree)
-    vn_lo = int(vn.vn_for(spec.role, layer_id=0, step=step))
-    layer_macs = torch.zeros((spec.n_layers, mac.MAC_BYTES),
-                             dtype=torch.uint8, device=keys.key.device)
-    ciphertexts = []
-    for leaf, layout in zip(leaves, spec.addr_map.leaves, strict=True):
-        ct, leaf_mac = _protect_leaf(leaf, keys, spec, layout, vn_lo)
-        layer_macs[layout.layer_id] ^= leaf_mac
-        ciphertexts.append(ct)
-    return SecureState(tuple(ciphertexts), layer_macs,
-                       mac.model_mac(layer_macs), vn_lo)
+    with trace_mod.span("crossing.protect"):
+        leaves, _ = tree_flatten(tree)
+        vn_lo = int(vn.vn_for(spec.role, layer_id=0, step=step))
+        layer_macs = torch.zeros((spec.n_layers, mac.MAC_BYTES),
+                                 dtype=torch.uint8, device=keys.key.device)
+        ciphertexts = []
+        for leaf, layout in zip(leaves, spec.addr_map.leaves, strict=True):
+            ct, leaf_mac = _protect_leaf(leaf, keys, spec, layout, vn_lo)
+            layer_macs[layout.layer_id] ^= leaf_mac
+            ciphertexts.append(ct)
+        return SecureState(tuple(ciphertexts), layer_macs,
+                           mac.model_mac(layer_macs), vn_lo)
 
 
 def unprotect(state: SecureState, keys: SecureKeys, spec: RegionSpec, *,
@@ -208,24 +213,27 @@ def unprotect(state: SecureState, keys: SecureKeys, spec: RegionSpec, *,
     """
     if verify not in ("layer", "model", "none"):
         raise ValueError(f"verify must be layer, model or none: {verify!r}")
-    device = keys.key.device
-    vn_lo = int(state.vn_lo)
-    layer_macs = torch.zeros((spec.n_layers, mac.MAC_BYTES),
-                             dtype=torch.uint8, device=device)
-    leaves = []
-    for ct, layout in zip(state.ciphertexts, spec.addr_map.leaves,
-                          strict=True):
-        ct = ct.to(device)
-        if verify != "none":
-            layer_macs[layout.layer_id] ^= _leaf_mac(ct, keys, spec, layout,
-                                                     vn_lo)
-        pt = _crypt(ct, keys, spec, layout, vn_lo)
-        leaves.append(bytes_to_tensor(pt, layout.spec))
-    tree = tree_unflatten(spec.treedef, leaves)
-    if verify == "layer":
-        ok = torch.all(layer_macs == state.layer_macs.to(device))
-    elif verify == "model":
-        ok = torch.all(mac.model_mac(layer_macs) == state.model_mac.to(device))
-    else:
-        ok = torch.tensor(True, device=device)
-    return tree, ok
+    with trace_mod.span("crossing.unprotect"):
+        device = keys.key.device
+        vn_lo = int(state.vn_lo)
+        layer_macs = torch.zeros((spec.n_layers, mac.MAC_BYTES),
+                                 dtype=torch.uint8, device=device)
+        leaves = []
+        for ct, layout in zip(state.ciphertexts, spec.addr_map.leaves,
+                              strict=True):
+            ct = ct.to(device)
+            if verify != "none":
+                layer_macs[layout.layer_id] ^= _leaf_mac(ct, keys, spec,
+                                                         layout, vn_lo)
+            pt = _crypt(ct, keys, spec, layout, vn_lo)
+            with trace_mod.span("crossing.from_bytes"):
+                leaves.append(bytes_to_tensor(pt, layout.spec))
+        tree = tree_unflatten(spec.treedef, leaves)
+        if verify == "layer":
+            ok = torch.all(layer_macs == state.layer_macs.to(device))
+        elif verify == "model":
+            ok = torch.all(mac.model_mac(layer_macs)
+                           == state.model_mac.to(device))
+        else:
+            ok = torch.tensor(True, device=device)
+        return tree, ok

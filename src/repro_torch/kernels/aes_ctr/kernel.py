@@ -29,6 +29,7 @@ from repro_torch.kernels.common import (MAX_SHARED_BYTES, aes_ctr_ops,
                                         bind_c, check_operand,
                                         check_shared_bytes, on_cpu,
                                         raise_on_error, stream_handle)
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["aes_ctr_keystream", "aes_ctr_keystream_multi", "te0_table_np",
            "t_table", "grid_blocks", "TABLE_SHARED_BYTES", "MAX_BANK_ROWS"]
@@ -101,8 +102,10 @@ def aes_ctr_keystream(counter_words: torch.Tensor,
         return out
     _check_count(n, "aes_ctr_keystream")
     table = t_table(counter_words.device)
-    rc = _entry()(counter_words.data_ptr(), round_keys.data_ptr(),
-                  table.data_ptr(), out.data_ptr(), n, stream_handle())
+    entry = _entry()
+    with trace_mod.span("kernel.aes_ctr_keystream"):
+        rc = entry(counter_words.data_ptr(), round_keys.data_ptr(),
+                   table.data_ptr(), out.data_ptr(), n, stream_handle())
     raise_on_error(rc, "aes_ctr_keystream")
     LAUNCHES["aes_ctr_keystream"] += 1
     charge("aes_ctr_keystream", __file__,
@@ -140,10 +143,11 @@ def aes_ctr_keystream_multi(counter_words: torch.Tensor,
         return out
     _check_count(n, "aes_ctr_keystream_multi")
     table = t_table(counter_words.device)
-    rc = _entry("aes_ctr_keystream_multi", 5, 2)(
-        counter_words.data_ptr(), bank_round_keys.data_ptr(),
-        row_idx.data_ptr(), table.data_ptr(), out.data_ptr(), n, k,
-        stream_handle())
+    entry = _entry("aes_ctr_keystream_multi", 5, 2)
+    with trace_mod.span("kernel.aes_ctr_keystream_multi"):
+        rc = entry(counter_words.data_ptr(), bank_round_keys.data_ptr(),
+                   row_idx.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+                   k, stream_handle())
     raise_on_error(rc, "aes_ctr_keystream_multi")
     LAUNCHES["aes_ctr_keystream_multi"] += 1
     charge("aes_ctr_keystream_multi", __file__,

@@ -19,6 +19,7 @@ from repro_torch.kernels.common import (bind_c, check_operand,
 from repro_torch.kernels.fused_crypt_mac.ref import (
     fused_crypt_mac_mixed_ref, fused_crypt_mac_ref,
     fused_crypt_mac_write_mixed_ref, fused_crypt_mac_write_ref)
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["fused_crypt_mac", "fused_crypt_mac_write",
            "fused_crypt_mac_mixed", "fused_crypt_mac_write_mixed",
@@ -54,9 +55,10 @@ def _launch(name: str, data, base, div, bind, key):
     if n == 0:
         return out, nh
     entry = bind_c(getattr(build.load("fused_crypt_mac"), name), 7, 2)
-    rc = entry(data.data_ptr(), base.data_ptr(), div.data_ptr(),
-               bind.data_ptr(), key.data_ptr(), out.data_ptr(), nh.data_ptr(),
-               n, s, stream_handle())
+    with trace_mod.span(f"kernel.{name}"):
+        rc = entry(data.data_ptr(), base.data_ptr(), div.data_ptr(),
+                   bind.data_ptr(), key.data_ptr(), out.data_ptr(),
+                   nh.data_ptr(), n, s, stream_handle())
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     charge(name, __file__, (data, base, div, bind, key, out, nh),
@@ -81,9 +83,10 @@ def _launch_mixed(name: str, data, base, div_bank, bind, key_bank, rows):
     if n == 0:
         return out, nh
     entry = bind_c(getattr(build.load("fused_crypt_mac"), name), 8, 3)
-    rc = entry(data.data_ptr(), base.data_ptr(), div_bank.data_ptr(),
-               bind.data_ptr(), key_bank.data_ptr(), rows.data_ptr(),
-               out.data_ptr(), nh.data_ptr(), n, s, k, stream_handle())
+    with trace_mod.span(f"kernel.{name}"):
+        rc = entry(data.data_ptr(), base.data_ptr(), div_bank.data_ptr(),
+                   bind.data_ptr(), key_bank.data_ptr(), rows.data_ptr(),
+                   out.data_ptr(), nh.data_ptr(), n, s, k, stream_handle())
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     charge(name, __file__,

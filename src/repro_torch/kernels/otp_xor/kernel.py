@@ -14,6 +14,7 @@ from repro_torch.kernels.common import (MAX_SHARED_BYTES, bind_c,
                                         check_operand, on_cpu, otp_xor_ops,
                                         raise_on_error, stream_handle)
 from repro_torch.kernels.otp_xor.ref import otp_xor_ref
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["otp_xor"]
 
@@ -42,8 +43,10 @@ def otp_xor(data_lanes: torch.Tensor, base_otp_lanes: torch.Tensor,
     if n == 0:
         return out
     entry = bind_c(build.load("otp_xor").otp_xor, 4, 2)
-    rc = entry(data_lanes.data_ptr(), base_otp_lanes.data_ptr(),
-               div_lanes.data_ptr(), out.data_ptr(), n, s, stream_handle())
+    with trace_mod.span("kernel.otp_xor"):
+        rc = entry(data_lanes.data_ptr(), base_otp_lanes.data_ptr(),
+                   div_lanes.data_ptr(), out.data_ptr(), n, s,
+                   stream_handle())
     raise_on_error(rc, "otp_xor")
     LAUNCHES["otp_xor"] += 1
     charge("otp_xor", __file__, (data_lanes, base_otp_lanes, div_lanes, out),

@@ -14,6 +14,7 @@ from repro_torch.kernels.common import (bind_c, check_operand, nh_hash_ops,
                                         on_cpu, raise_on_error,
                                         stream_handle)
 from repro_torch.kernels.xormac.ref import nh_hash_ref
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["nh_hash_kernel_call", "MAX_PAIRS"]
 
@@ -44,8 +45,9 @@ def nh_hash_kernel_call(payload_u32: torch.Tensor,
     if n == 0 or lanes == 0:
         return out.zero_()
     entry = bind_c(build.load("xormac").nh_hash, 3, 2)
-    rc = entry(payload_u32.data_ptr(), key_u32.data_ptr(), out.data_ptr(), n,
-               lanes, stream_handle())
+    with trace_mod.span("kernel.nh_hash_kernel_call"):
+        rc = entry(payload_u32.data_ptr(), key_u32.data_ptr(),
+                   out.data_ptr(), n, lanes, stream_handle())
     raise_on_error(rc, "nh_hash_kernel_call")
     LAUNCHES["nh_hash_kernel_call"] += 1
     charge("nh_hash_kernel_call", __file__, (payload_u32, key_u32, out),

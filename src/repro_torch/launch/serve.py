@@ -54,18 +54,19 @@ reports the migrations and the deferred cluster root MAC::
 
 ``--fault-tolerance`` contains integrity faults instead of aborting
 (quarantine, secure-recompute recovery; with ``--shards``, shard
-failover too).  The observability flags
-(``--engine paged`` only): ``--trace-out`` (Chrome trace of the tick
-phases), ``--metrics-json`` / ``--metrics-prom`` (a metrics snapshot,
-Prometheus text), ``--audit-out`` (the hash-chained audit log as JSON
-lines), ``--slo-ttft-ms`` / ``--slo-p99-ticks`` (SLO targets; a hard
-breach exits with code 3; one monitor per shard) and ``--http-port``
+failover too). The observability flags (``--engine paged`` only):
+``--trace-out`` (Chrome trace of the ticks, their phases and the
+program's spans: page crossings and their stages, model, kernel
+launches, each request's wait in the queue, the collector's passes),
+``--metrics-json`` / ``--metrics-prom`` (a metrics snapshot, Prometheus
+text), ``--audit-out`` (the hash-chained audit log as JSON lines),
+``--slo-ttft-ms`` / ``--slo-p99-ticks`` (SLO targets; a hard breach
+exits with code 3; one monitor per shard) and ``--http-port``
 (``/healthz``, the worst shard's health, and ``/metrics`` on 127.0.0.1
 during the run) and ``--profile-json`` (the protection-vs-model
 device-cost profile of the all-resident decode variant, after the run;
-with ``--shards``, every shard's and the cluster rollup).  ``--quiet``
-keeps warnings
-only, ``--json-logs`` writes one JSON record a line.
+with ``--shards``, every shard's and the cluster rollup). ``--quiet``
+keeps warnings only, ``--json-logs`` writes one JSON record a line.
 
 ``--ckpt-dir D`` serves the newest checkpoint published in ``D``
 (:mod:`repro_torch.checkpoint.secure_ckpt`), loaded and verified with
@@ -104,6 +105,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import init_params
+from repro_torch.obs import trace as trace_mod
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
                                           make_prefill_step)
 
@@ -179,8 +181,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--json-logs", action="store_true",
                     help="one structured JSON record per log line")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="enable tick-phase tracing; write Chrome "
-                         "trace-event JSON here (--engine paged only)")
+                    help="trace the ticks and the program's spans; write "
+                         "Chrome trace-event JSON here (--engine paged "
+                         "only)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write a metrics snapshot (JSON) after the run")
     ap.add_argument("--metrics-prom", default=None, metavar="PATH",
@@ -340,9 +343,15 @@ def _serve_paged(arch, cfg, params, args, device) -> dict:
         server = _start_http(args.http_port, monitors, eng)
         _log("http", f"[serve] /healthz + /metrics on "
              f"127.0.0.1:{args.http_port}", port=args.http_port)
+    if args.trace_out:
+        # The program's spans go to the engine's (or cluster's) tracer,
+        # inside the ticks and between them.
+        trace_mod.enable(eng.tracer)
     try:
         return _drive_paged(eng, cfg, args, device, sessions, monitors)
     finally:
+        if args.trace_out:
+            trace_mod.disable()
         if server is not None:
             server.shutdown()
             server.server_close()

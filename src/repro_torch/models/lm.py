@@ -45,6 +45,7 @@ from repro_torch.models.layers import (ParamSpec, masked_nll, maybe_remat,
 from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["LMConfig", "LM", "layout", "segments", "lm_specs", "cache_specs",
            "lm_forward", "lm_loss", "lm_prefill", "lm_decode"]
@@ -230,37 +231,42 @@ def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
     ``last_pos`` selects the position whose logits are returned (the
     engine right-pads prompts to a power-of-two length).
     """
-    x, positions = _embed_tokens(cfg, params, batch)
-    caches = []
-    for seg_params, (kinds, steps) in zip(params["segments"], segments(cfg)):
-        per_kind = [[] for _ in kinds]
-        for i in range(steps):
-            for j, (kind, p) in enumerate(zip(kinds, seg_params)):
-                x, cache = blk.block_prefill(cfg, kind, _layer(p, i), x,
-                                             positions, max_len)
-                per_kind[j].append(cache)
-        caches.append([_stack_caches(cs) for cs in per_kind])
-    x = rms_norm(x, params["final_norm"])
-    last = x[:, -1:] if last_pos is None else x[:, last_pos: last_pos + 1]
-    return _head(cfg, params, last), caches
+    with trace_mod.span("model.prefill"):
+        x, positions = _embed_tokens(cfg, params, batch)
+        caches = []
+        for seg_params, (kinds, steps) in zip(params["segments"],
+                                              segments(cfg)):
+            per_kind = [[] for _ in kinds]
+            for i in range(steps):
+                for j, (kind, p) in enumerate(zip(kinds, seg_params)):
+                    x, cache = blk.block_prefill(cfg, kind, _layer(p, i), x,
+                                                 positions, max_len)
+                    per_kind[j].append(cache)
+            caches.append([_stack_caches(cs) for cs in per_kind])
+        x = rms_norm(x, params["final_norm"])
+        last = (x[:, -1:] if last_pos is None
+                else x[:, last_pos: last_pos + 1])
+        return _head(cfg, params, last), caches
 
 
 def lm_decode(cfg: LMConfig, params, tokens: torch.Tensor, caches):
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), new caches)."""
-    x = params["embed"][tokens]
-    new_caches = []
-    for seg_params, seg_cache, (kinds, steps) in zip(
-            params["segments"], caches, segments(cfg)):
-        per_kind = [[] for _ in kinds]
-        for i in range(steps):
-            for j, (kind, p, c) in enumerate(zip(kinds, seg_params,
-                                                 seg_cache)):
-                x, new = blk.block_decode(cfg, kind, _layer(p, i), x,
-                                          type(c)(*(leaf[i] for leaf in c)))
-                per_kind[j].append(new)
-        new_caches.append([_stack_caches(cs) for cs in per_kind])
-    x = rms_norm(x, params["final_norm"])
-    return _head(cfg, params, x), new_caches
+    with trace_mod.span("model.decode"):
+        x = params["embed"][tokens]
+        new_caches = []
+        for seg_params, seg_cache, (kinds, steps) in zip(
+                params["segments"], caches, segments(cfg)):
+            per_kind = [[] for _ in kinds]
+            for i in range(steps):
+                for j, (kind, p, c) in enumerate(zip(kinds, seg_params,
+                                                     seg_cache)):
+                    x, new = blk.block_decode(
+                        cfg, kind, _layer(p, i), x,
+                        type(c)(*(leaf[i] for leaf in c)))
+                    per_kind[j].append(new)
+            new_caches.append([_stack_caches(cs) for cs in per_kind])
+        x = rms_norm(x, params["final_norm"])
+        return _head(cfg, params, x), new_caches
 
 
 def _to_module(tree: Any) -> nn.Module:

@@ -38,7 +38,6 @@ engines' device-cost profiles up into one.
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 from typing import Optional
 
@@ -55,7 +54,8 @@ from repro_torch.serve import kv_pages as kvp
 from repro_torch.serve import merkle_pool as mkp
 from repro_torch.serve.engine import (IntegrityError, RunResult,
                                       SecureServingEngine, SubmitAPI,
-                                      SubmitRequest, latency_percentiles)
+                                      SubmitRequest, _traced,
+                                      latency_percentiles)
 from repro_torch.serve.faults import RecoveryPolicy
 from repro_torch.serve.sharded_pool import ShardedKVPool
 
@@ -150,27 +150,11 @@ class ClusterEngine(SubmitAPI):
         if trace:
             self.tracer = (trace if isinstance(trace, trace_mod.SpanTracer)
                            else trace_mod.SpanTracer(pid=shards))
-            self._instrument_step()
+            key = "cluster_tick_seconds"
+            self._tick_hists = {key: self.metrics.histogram(
+                key, metrics_mod.CLUSTER_HISTOGRAMS[key])}
 
     # -- observability -------------------------------------------------------
-
-    def _instrument_step(self) -> None:
-        """Wrap :meth:`step` in a span and a wall-clock histogram."""
-        hist = self.metrics.histogram(
-            "cluster_tick_seconds",
-            metrics_mod.CLUSTER_HISTOGRAMS["cluster_tick_seconds"])
-        tracer, inner = self.tracer, self.step
-
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter_ns()
-            try:
-                return inner(*a, **kw)
-            finally:
-                t1 = time.perf_counter_ns()
-                tracer.add("cluster_tick", t0, t1, {"tick": self.tick})
-                hist.observe((t1 - t0) / 1e9)
-
-        self.step = wrapper
 
     @property
     def stats(self):
@@ -320,6 +304,7 @@ class ClusterEngine(SubmitAPI):
     # -- the cluster tick ----------------------------------------------------
 
     @torch.no_grad()
+    @_traced("cluster_tick", "cluster_tick_seconds")
     def step(self) -> list:
         """One cluster tick: every shard admits, then every shard's
         decode is dispatched, then every shard is collected.  Returns the

@@ -55,8 +55,12 @@ O(log n) membership proof for its resident pages.
 **Observability.**  ``stats`` is a view over a
 :class:`repro_torch.obs.metrics.MetricsRegistry` (counters, lazy gauges,
 histograms; :meth:`snapshot`, :meth:`prometheus`).  ``trace=True`` (or a
-:class:`~repro_torch.obs.trace.SpanTracer`) wraps the tick phases in
-host-clock spans (:meth:`export_trace`); ``audit=True`` (or a shared
+:class:`~repro_torch.obs.trace.SpanTracer`) records the tick and its
+phases as host-clock spans (:meth:`export_trace`), and while the
+program's spans are on (:func:`repro_torch.obs.trace.enable`) the page
+crossings, the model, the kernels and each request's wait
+(``request.queued``) inside the tick go to the same tracer;
+``audit=True`` (or a shared
 :class:`~repro_torch.obs.audit.AuditLog`) keeps a hash-chained log of
 security events.  Every MAC-gate verdict the engine syncs goes through
 ``PageIO.report_verdict``, once per gate.  :meth:`profile` splits a
@@ -102,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -266,6 +271,38 @@ class _Slot:
     shared_n: int = 0
     shared_entries: list = dataclasses.field(default_factory=list)
     replay: deque = dataclasses.field(default_factory=deque)
+
+
+def _traced(name: str, hist_key: str):
+    """Decorate a tick (or a tick phase) of an engine or cluster: with
+    ``self.tracer``, its span (``args.tick`` the tick it ends in), its
+    wall-clock histogram ``self._tick_hists[hist_key]``, and the
+    program's spans going to that tracer while it runs; without one, one
+    attribute check.  On the method rather than the instance, so a
+    cluster driving its shards' phases directly records them too.  The
+    spans are host time: a decode dispatch returns before the card has
+    run it, and the tick syncs only on its verdict in
+    ``_decode_collect``."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *a, **kw):
+            tracer = self.tracer
+            if tracer is None:
+                return fn(self, *a, **kw)
+            sp = tracer.span(name)
+            try:
+                with trace_mod.activate(tracer), sp:
+                    try:
+                        return fn(self, *a, **kw)
+                    finally:
+                        sp.args["tick"] = self.tick
+            finally:
+                self._tick_hists[hist_key].observe(sp.seconds)
+
+        return wrapper
+
+    return deco
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -503,8 +540,8 @@ class SecureServingEngine(SubmitAPI):
 
         The registry is always on (its counters are ``stats``); gauges
         are sampled at :meth:`snapshot` time.  Spans and the phase
-        histograms exist only with ``trace``: the tick phases are then
-        wrapped per instance, so a default engine makes no timing call.
+        histograms exist only with ``trace`` (see :func:`_traced`): a
+        default engine makes no timing call.
         ``audit`` (``True`` or a shared :class:`AuditLog`) turns on the
         hash-chained security log.
         """
@@ -579,7 +616,12 @@ class SecureServingEngine(SubmitAPI):
         if trace:
             self.tracer = (trace if isinstance(trace, trace_mod.SpanTracer)
                            else trace_mod.SpanTracer(pid=self.shard_id))
-            self._instrument_phases()
+            self._tick_hists = {
+                key: self.metrics.histogram(key, h[key])
+                for key in ("phase_tick_begin_seconds",
+                            "phase_decode_dispatch_seconds",
+                            "phase_decode_collect_seconds",
+                            "phase_tick_end_seconds", "tick_seconds")}
         # Every host-synced gate verdict lands in the counters, whichever
         # crossing produced it.
         self.page_io.verdict_hooks.append(self._on_verdict)
@@ -593,39 +635,6 @@ class SecureServingEngine(SubmitAPI):
         self._ttft_ticks.observe(req.first_tick - req.submit_tick)
         if req.submit_time:
             self._ttft_seconds.observe(time.perf_counter() - req.submit_time)
-
-    def _instrument_phases(self) -> None:
-        """Wrap the tick phases of this instance in spans + histograms.
-
-        Instance attributes shadow the methods, so :meth:`step` (also
-        wrapped, as the ``tick`` span) reaches the timed phases.  The
-        spans are host time: a decode dispatch returns before the card
-        has run it, and the tick syncs only on its verdict in
-        ``_decode_collect``.
-        """
-        h = metrics_mod.ENGINE_HISTOGRAMS
-        tracer = self.tracer
-
-        def timed(span_name, fn, hist):
-            def wrapper(*a, **kw):
-                t0 = time.perf_counter_ns()
-                try:
-                    return fn(*a, **kw)
-                finally:
-                    t1 = time.perf_counter_ns()
-                    tracer.add(span_name, t0, t1, {"tick": self.tick})
-                    hist.observe((t1 - t0) / 1e9)
-            return wrapper
-
-        for name in ("_tick_begin", "_decode_dispatch", "_decode_collect",
-                     "_tick_end"):
-            key = f"phase{name}_seconds"
-            hist = self.metrics.histogram(key, h[key])
-            setattr(self, name, timed(name.lstrip("_"), getattr(self, name),
-                                      hist))
-        tick_hist = self.metrics.histogram("tick_seconds",
-                                           h["tick_seconds"])
-        self.step = timed("tick", self.step, tick_hist)
 
     @property
     def stats(self):
@@ -1024,6 +1033,7 @@ class SecureServingEngine(SubmitAPI):
                                        self._tenant_waiting.values())
 
     @torch.no_grad()
+    @_traced("tick", "tick_seconds")
     def step(self) -> list:
         """One scheduler tick: admit, grow/evict, batched decode.
 
@@ -1060,6 +1070,7 @@ class SecureServingEngine(SubmitAPI):
             self._contain_error(err)
         return finished
 
+    @_traced("tick_begin", "phase_tick_begin_seconds")
     def _tick_begin(self, finished: list) -> list:
         self.tick += 1
         if (self.registry is not None and self.rotate_every
@@ -1074,6 +1085,7 @@ class SecureServingEngine(SubmitAPI):
             self._ensure_cow()
         return [i for i, s in enumerate(self.slots) if s is not None]
 
+    @_traced("tick_end", "phase_tick_end_seconds")
     def _tick_end(self) -> None:
         if (self.policy.deferred_model_mac and self.defer_interval
                 and self.tick % self.defer_interval == 0):
@@ -1275,6 +1287,17 @@ class SecureServingEngine(SubmitAPI):
             self._admit_one(req, tenant, finished)
 
     def _admit_one(self, req: Request, tenant, finished: list) -> None:
+        """Admit one request.  Its first wait in the queue ends here
+        (``request.queued``, from ``submit()``), and the admission runs
+        in a ``request.admit`` span; both carry its rid."""
+        if req.submit_time and req.n_evictions == 0:
+            trace_mod.record(
+                "request.queued", int(req.submit_time * 1e9), rid=req.rid,
+                tenant=None if tenant is None else tenant.tenant_id)
+        with trace_mod.span("request.admit", rid=req.rid):
+            self._admit_to_slot(req, tenant, finished)
+
+    def _admit_to_slot(self, req: Request, tenant, finished: list) -> None:
         seq = req.prompt + req.generated
         if (self.prefix_cache is not None and tenant is not None
                 and req.share_prefix and len(seq) > 1):
@@ -1773,6 +1796,7 @@ class SecureServingEngine(SubmitAPI):
         return ((key_idx, owners, key_epochs, cur_key_idx, cur_epochs),
                 False)
 
+    @_traced("decode_dispatch", "phase_decode_dispatch_seconds")
     def _decode_dispatch(self, active_idx: list):
         """Launch this tick's batched decode over the bucketed window.
 
@@ -1781,6 +1805,14 @@ class SecureServingEngine(SubmitAPI):
         """
         bucket = self.page_table.bucket_for(
             (self.slots[i].length for i in active_idx), self.page_tokens)
+        if self.tracer is not None:
+            # The window crosses every slot's bucket, empty slots and
+            # pages past a slot's length included; live pages hold a token.
+            self.tracer.annotate(
+                pages_crossed=self.max_slots * bucket,
+                pages_live=sum(_ceil_div(self.slots[i].length,
+                                         self.page_tokens)
+                               for i in active_idx))
         page_table = self.page_table.window(bucket)
         lengths = np.zeros((self.max_slots,), np.int64)
         active = np.zeros((self.max_slots,), bool)
@@ -1828,6 +1860,7 @@ class SecureServingEngine(SubmitAPI):
         self.stats["decode_steps"] += 1
         return toks, ok
 
+    @_traced("decode_collect", "phase_decode_collect_seconds")
     def _decode_collect(self, active_idx: list, pending,
                         finished: list) -> None:
         """Sync on a dispatched decode and apply host bookkeeping."""

@@ -51,6 +51,7 @@ from repro_torch.core.bytesutil import MASK32, i64, u32
 from repro_torch.core.layout import SEGMENT_BYTES
 from repro_torch.core.secure_exec import SCHEMES, SchemeConfig, emulated_tree_probe
 from repro_torch.models.attention import CacheSpec
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["LeafPageSpec", "PageSpec", "PagedKVPool", "PageKeyCtx", "PageIO",
            "TwoLevelPageTable", "page_count_bucket", "PAGED_FIELDS",
@@ -400,9 +401,10 @@ def _block_counters(spec: PageSpec, leaf: LeafPageSpec,
                     page_ids: torch.Tensor, vns: torch.Tensor,
                     ctx: PageKeyCtx | None = None) -> torch.Tensor:
     """PA||VN counter words per optBlk: (N * n_blocks, 4) int64 u32."""
-    pa = _block_pa(spec, leaf, page_ids).reshape(-1)
-    vn_col = vns.repeat_interleave(leaf.n_blocks)
-    return _counter_words(spec, pa, vn_col, ctx, leaf.n_blocks)
+    with trace_mod.span("pageio.bind"):
+        pa = _block_pa(spec, leaf, page_ids).reshape(-1)
+        vn_col = vns.repeat_interleave(leaf.n_blocks)
+        return _counter_words(spec, pa, vn_col, ctx, leaf.n_blocks)
 
 
 def _block_binding(spec: PageSpec, leaf: LeafPageSpec,
@@ -415,19 +417,20 @@ def _block_binding(spec: PageSpec, leaf: LeafPageSpec,
     its owner and key epoch, so a page moved across tenants or replayed
     from a stale epoch fails even apart from the key mismatch.
     """
-    n = page_ids.shape[0]
-    blocks_per_layer = leaf.lp_bytes // spec.cfg.block_bytes
-    blk = torch.arange(leaf.n_blocks, device=page_ids.device)
-    layer = leaf.base_layer + blk // blocks_per_layer
-    fmap = torch.tensor((leaf.leaf_idx | (spec.shard << 28)) & MASK32,
-                        device=page_ids.device)
-    if ctx is not None:
-        fmap = ((fmap | (ctx.owners << 8) | ((ctx.epochs & 0xFFF) << 16))
-                & MASK32).repeat_interleave(leaf.n_blocks)
-    return mac.Binding.make(
-        _block_pa(spec, leaf, page_ids).reshape(-1),
-        vns.repeat_interleave(leaf.n_blocks),
-        layer.repeat(n), fmap, blk.repeat(n))
+    with trace_mod.span("pageio.bind"):
+        n = page_ids.shape[0]
+        blocks_per_layer = leaf.lp_bytes // spec.cfg.block_bytes
+        blk = torch.arange(leaf.n_blocks, device=page_ids.device)
+        layer = leaf.base_layer + blk // blocks_per_layer
+        fmap = torch.tensor((leaf.leaf_idx | (spec.shard << 28)) & MASK32,
+                            device=page_ids.device)
+        if ctx is not None:
+            fmap = ((fmap | (ctx.owners << 8) | ((ctx.epochs & 0xFFF) << 16))
+                    & MASK32).repeat_interleave(leaf.n_blocks)
+        return mac.Binding.make(
+            _block_pa(spec, leaf, page_ids).reshape(-1),
+            vns.repeat_interleave(leaf.n_blocks),
+            layer.repeat(n), fmap, blk.repeat(n))
 
 
 def _uniform_keys(ctx: PageKeyCtx):
@@ -550,22 +553,25 @@ def _fused_crossing(spec: PageSpec, leaf: LeafPageSpec, buf: torch.Tensor,
     cfg = spec.cfg
     binding = _block_binding(spec, leaf, page_ids, vns, ctx)
     counters = _block_counters(spec, leaf, page_ids, vns, ctx)
-    if ctx is not None and not uniform:
-        kernel = (fused_ops.secure_write_kernel_mixed if write
-                  else fused_ops.secure_read_kernel_mixed)
-        rows = ctx.key_idx.repeat_interleave(leaf.n_blocks)
-        out, macs = kernel(buf.reshape(-1), binding, ctx.bank_round_keys,
-                           counters, ctx.bank_hash_key, rows,
-                           block_bytes=cfg.block_bytes)
-    else:
-        kernel = (fused_ops.secure_write_kernel if write
-                  else fused_ops.secure_read_kernel)
-        if ctx is None:
-            round_keys, hash_key = keys.round_keys, keys.hash_key
+    with trace_mod.span("pageio.crypt"):
+        if ctx is not None and not uniform:
+            kernel = (fused_ops.secure_write_kernel_mixed if write
+                      else fused_ops.secure_read_kernel_mixed)
+            rows = ctx.key_idx.repeat_interleave(leaf.n_blocks)
+            out, macs = kernel(buf.reshape(-1), binding,
+                               ctx.bank_round_keys, counters,
+                               ctx.bank_hash_key, rows,
+                               block_bytes=cfg.block_bytes)
         else:
-            _, round_keys, hash_key = _uniform_keys(ctx)
-        out, macs = kernel(buf.reshape(-1), binding, round_keys, counters,
-                           hash_key, block_bytes=cfg.block_bytes)
+            kernel = (fused_ops.secure_write_kernel if write
+                      else fused_ops.secure_read_kernel)
+            if ctx is None:
+                round_keys, hash_key = keys.round_keys, keys.hash_key
+            else:
+                _, round_keys, hash_key = _uniform_keys(ctx)
+            out, macs = kernel(buf.reshape(-1), binding, round_keys,
+                               counters, hash_key,
+                               block_bytes=cfg.block_bytes)
     return (out.reshape(buf.shape),
             macs.reshape(page_ids.shape[0], leaf.n_blocks, mac.MAC_BYTES))
 
@@ -594,12 +600,13 @@ def _crossing(spec: PageSpec, leaf: LeafPageSpec, buf: torch.Tensor,
     if need_macs and _kernel_read_ok(spec):
         return _fused_crossing(spec, leaf, buf, page_ids, vns, keys, ctx,
                                uniform, write)
-    out = _crypt(spec, leaf, buf, page_ids, vns, keys, ctx, uniform)
-    if not need_macs:
-        return out, None
-    ct = out if write else buf
-    return out, _page_block_macs(spec, leaf, ct, page_ids, vns, keys, ctx,
-                                 uniform)
+    with trace_mod.span("pageio.crypt"):
+        out = _crypt(spec, leaf, buf, page_ids, vns, keys, ctx, uniform)
+        if not need_macs:
+            return out, None
+        ct = out if write else buf
+        return out, _page_block_macs(spec, leaf, ct, page_ids, vns, keys,
+                                     ctx, uniform)
 
 
 # ---------------------------------------------------------------------------
@@ -611,42 +618,47 @@ def _pages_to_dense(spec: PageSpec, leaf: LeafPageSpec, pt: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """(S, P, page_bytes) u8 -> (steps, S, P*page_tokens, *rest), with
     token positions >= length zeroed."""
-    s, p = pt.shape[:2]
-    ptok = spec.page_tokens
-    win_len = p * ptok
-    dtype = _torch_dtype(leaf.dtype)
-    payload = pt.reshape(s, p, leaf.steps, leaf.lp_bytes)[
-        ..., : ptok * leaf.tok_bytes].contiguous()
-    vals = payload.view(dtype).reshape((s, p, leaf.steps, ptok) + leaf.rest)
-    dense = vals.movedim(2, 0).reshape((leaf.steps, s, win_len) + leaf.rest)
-    valid = (torch.arange(win_len, device=pt.device)[None, :]
-             < lengths[:, None])
-    valid = valid.reshape((1, s, win_len) + (1,) * len(leaf.rest))
-    return torch.where(valid, dense, torch.zeros((), dtype=dtype,
-                                                 device=pt.device))
+    with trace_mod.span("pageio.layout"):
+        s, p = pt.shape[:2]
+        ptok = spec.page_tokens
+        win_len = p * ptok
+        dtype = _torch_dtype(leaf.dtype)
+        payload = pt.reshape(s, p, leaf.steps, leaf.lp_bytes)[
+            ..., : ptok * leaf.tok_bytes].contiguous()
+        vals = payload.view(dtype).reshape((s, p, leaf.steps, ptok)
+                                           + leaf.rest)
+        dense = vals.movedim(2, 0).reshape((leaf.steps, s, win_len)
+                                           + leaf.rest)
+        valid = (torch.arange(win_len, device=pt.device)[None, :]
+                 < lengths[:, None])
+        valid = valid.reshape((1, s, win_len) + (1,) * len(leaf.rest))
+        return torch.where(valid, dense, torch.zeros((), dtype=dtype,
+                                                     device=pt.device))
 
 
 def _dense_to_pages(spec: PageSpec, leaf: LeafPageSpec,
                     pages: torch.Tensor) -> torch.Tensor:
     """(N, steps, ptok, *rest) token data -> (N, page_bytes) u8."""
-    n = pages.shape[0]
-    flat = pages.contiguous().view(torch.uint8).reshape(
-        n, leaf.steps, spec.page_tokens * leaf.tok_bytes)
-    pad = leaf.lp_bytes - spec.page_tokens * leaf.tok_bytes
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(n, leaf.page_bytes)
+    with trace_mod.span("pageio.layout"):
+        n = pages.shape[0]
+        flat = pages.contiguous().view(torch.uint8).reshape(
+            n, leaf.steps, spec.page_tokens * leaf.tok_bytes)
+        pad = leaf.lp_bytes - spec.page_tokens * leaf.tok_bytes
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return flat.reshape(n, leaf.page_bytes)
 
 
 def _bytes_to_tokens(spec: PageSpec, leaf: LeafPageSpec,
                      buf: torch.Tensor) -> torch.Tensor:
     """(N, page_bytes) u8 -> (N, steps, ptok, *rest) token data."""
-    n = buf.shape[0]
-    ptok = spec.page_tokens
-    payload = buf.reshape(n, leaf.steps, leaf.lp_bytes)[
-        ..., : ptok * leaf.tok_bytes].contiguous()
-    return payload.view(_torch_dtype(leaf.dtype)).reshape(
-        (n, leaf.steps, ptok) + leaf.rest)
+    with trace_mod.span("pageio.layout"):
+        n = buf.shape[0]
+        ptok = spec.page_tokens
+        payload = buf.reshape(n, leaf.steps, leaf.lp_bytes)[
+            ..., : ptok * leaf.tok_bytes].contiguous()
+        return payload.view(_torch_dtype(leaf.dtype)).reshape(
+            (n, leaf.steps, ptok) + leaf.rest)
 
 
 # ---------------------------------------------------------------------------
@@ -720,42 +732,52 @@ class PageIO:
         *rest) tensor per paged leaf and the AND of every gated MAC check
         over the touched pages (pages holding positions < length).
         """
-        spec, keys = self.spec, self.keys
-        cfg = spec.cfg
-        s, p = page_table.shape
-        ptab = torch.where(page_table < 0, spec.scratch_page,
-                           page_table).to(torch.int64)
-        flat_ids = ptab.reshape(-1)
-        vns = i64(pool.page_vns[flat_ids])
-        page_start = torch.arange(p, device=ptab.device) * spec.page_tokens
-        touched = page_start[None, :] < lengths[:, None]           # (S, P)
-
-        ok = torch.ones((), dtype=torch.bool, device=ptab.device)
-        agg = torch.zeros((s, p, mac.MAC_BYTES), dtype=torch.uint8,
-                          device=ptab.device)
-        dense = []
-        for li, leaf in enumerate(spec.leaves):
-            ct = pool.cts[li][flat_ids]
-            pt, macs = _crossing(spec, leaf, ct, flat_ids, vns, keys, ctx,
-                                 uniform, write=False)
-            pt = pt.reshape(s, p, leaf.page_bytes)
-            if cfg.verify == "block":
-                macs = macs.reshape(s, p, leaf.n_blocks, mac.MAC_BYTES)
-                stored = pool.block_macs[li][flat_ids].reshape(macs.shape)
-                ok = ok & ((macs == stored)
-                           | ~touched[..., None, None]).all()
-            elif cfg.verify == "layer":
-                agg = agg ^ mac.xor_aggregate(
-                    macs.reshape(s, p, leaf.n_blocks, mac.MAC_BYTES), axis=2)
-            dense.append(_pages_to_dense(spec, leaf, pt, lengths))
-        if cfg.verify == "layer":
-            stored = pool.page_macs[flat_ids].reshape(s, p, mac.MAC_BYTES)
-            ok = ok & ((agg == stored) | ~touched[..., None]).all()
-        if cfg.emulate_tree:
-            ok = ok & emulated_tree_probe(
-                sum(leaf.n_blocks for leaf in spec.leaves) * s * p,
-                device=ptab.device)
-        return dense, ok
+        with trace_mod.span("pageio.read"):
+            spec, keys = self.spec, self.keys
+            cfg = spec.cfg
+            s, p = page_table.shape
+            dev = page_table.device
+            with trace_mod.span("pageio.gather"):
+                ptab = torch.where(page_table < 0, spec.scratch_page,
+                                   page_table).to(torch.int64)
+                flat_ids = ptab.reshape(-1)
+                vns = i64(pool.page_vns[flat_ids])
+            with trace_mod.span("pageio.verify"):
+                page_start = torch.arange(p, device=dev) * spec.page_tokens
+                touched = page_start[None, :] < lengths[:, None]   # (S, P)
+                ok = torch.ones((), dtype=torch.bool, device=dev)
+                agg = torch.zeros((s, p, mac.MAC_BYTES), dtype=torch.uint8,
+                                  device=dev)
+            dense = []
+            for li, leaf in enumerate(spec.leaves):
+                with trace_mod.span("pageio.gather"):
+                    ct = pool.cts[li][flat_ids]
+                pt, macs = _crossing(spec, leaf, ct, flat_ids, vns, keys,
+                                     ctx, uniform, write=False)
+                pt = pt.reshape(s, p, leaf.page_bytes)
+                with trace_mod.span("pageio.verify"):
+                    if cfg.verify == "block":
+                        macs = macs.reshape(s, p, leaf.n_blocks,
+                                            mac.MAC_BYTES)
+                        stored = pool.block_macs[li][flat_ids].reshape(
+                            macs.shape)
+                        ok = ok & ((macs == stored)
+                                   | ~touched[..., None, None]).all()
+                    elif cfg.verify == "layer":
+                        agg = agg ^ mac.xor_aggregate(
+                            macs.reshape(s, p, leaf.n_blocks, mac.MAC_BYTES),
+                            axis=2)
+                dense.append(_pages_to_dense(spec, leaf, pt, lengths))
+            with trace_mod.span("pageio.verify"):
+                if cfg.verify == "layer":
+                    stored = pool.page_macs[flat_ids].reshape(
+                        s, p, mac.MAC_BYTES)
+                    ok = ok & ((agg == stored) | ~touched[..., None]).all()
+                if cfg.emulate_tree:
+                    ok = ok & emulated_tree_probe(
+                        sum(leaf.n_blocks for leaf in spec.leaves) * s * p,
+                        device=dev)
+            return dense, ok
 
     def write(self, pool: PagedKVPool, page_ids: torch.Tensor,
               leaf_pages: list, vn: int, real_mask: torch.Tensor,
@@ -769,32 +791,38 @@ class PageIO:
         (N,) marks writes to real pages (they join the deferred pool MAC);
         ``ctx`` optional per-page tenant keys (N entries).
         """
-        spec, keys = self.spec, self.keys
-        cfg = spec.cfg
-        page_ids = page_ids.to(torch.int64)
-        n = page_ids.shape[0]
-        vns = torch.full((n,), int(vn) & MASK32, dtype=torch.int64,
-                         device=page_ids.device)
-        agg = torch.zeros((n, mac.MAC_BYTES), dtype=torch.uint8,
-                          device=page_ids.device)
-        for li, leaf in enumerate(spec.leaves):
-            buf = _dense_to_pages(spec, leaf, leaf_pages[li])
-            ct, macs = _crossing(spec, leaf, buf, page_ids, vns, keys, ctx,
-                                 uniform, write=True)
-            pool.cts[li][page_ids] = ct
-            if cfg.verify != "none":
-                if cfg.verify == "block":
-                    pool.block_macs[li][page_ids] = macs
-                agg = agg ^ mac.xor_aggregate(macs, axis=1)
-        old_macs = pool.page_macs[page_ids]              # read before scatter
-        pool.page_macs[page_ids] = agg
-        pool.page_vns[page_ids] = u32(vns)
-        delta = mac.xor_aggregate(torch.where(
-            real_mask[:, None], old_macs ^ agg, torch.zeros_like(agg)))
-        pool.pool_mac.bitwise_xor_(delta)
-        for listener in self.write_listeners:
-            listener(pool, delta)
-        return pool
+        with trace_mod.span("pageio.write"):
+            spec, keys = self.spec, self.keys
+            cfg = spec.cfg
+            page_ids = page_ids.to(torch.int64)
+            n = page_ids.shape[0]
+            vns = torch.full((n,), int(vn) & MASK32, dtype=torch.int64,
+                             device=page_ids.device)
+            agg = torch.zeros((n, mac.MAC_BYTES), dtype=torch.uint8,
+                              device=page_ids.device)
+            for li, leaf in enumerate(spec.leaves):
+                buf = _dense_to_pages(spec, leaf, leaf_pages[li])
+                ct, macs = _crossing(spec, leaf, buf, page_ids, vns, keys,
+                                     ctx, uniform, write=True)
+                with trace_mod.span("pageio.scatter"):
+                    pool.cts[li][page_ids] = ct
+                    if cfg.verify == "block":
+                        pool.block_macs[li][page_ids] = macs
+                if cfg.verify != "none":
+                    with trace_mod.span("pageio.verify"):
+                        agg = agg ^ mac.xor_aggregate(macs, axis=1)
+            with trace_mod.span("pageio.scatter"):
+                old_macs = pool.page_macs[page_ids]      # read before scatter
+                pool.page_macs[page_ids] = agg
+                pool.page_vns[page_ids] = u32(vns)
+            with trace_mod.span("pageio.verify"):
+                delta = mac.xor_aggregate(torch.where(
+                    real_mask[:, None], old_macs ^ agg,
+                    torch.zeros_like(agg)))
+                pool.pool_mac.bitwise_xor_(delta)
+            for listener in self.write_listeners:
+                listener(pool, delta)
+            return pool
 
     def write_prefill(self, pool: PagedKVPool, page_ids: torch.Tensor,
                       dense_leaves: list, n_write_pages: int, vn: int,
@@ -803,19 +831,20 @@ class PageIO:
         """Protect the first ``n_write_pages`` pages of one freshly
         prefilled slot; ``dense_leaves`` per paged leaf (steps, 1,
         max_len, *rest)."""
-        spec = self.spec
-        ptok = spec.page_tokens
-        leaf_pages = []
-        for leaf, dense_leaf in zip(spec.leaves, dense_leaves):
-            toks = dense_leaf[:, 0, : n_write_pages * ptok]
-            pages = toks.reshape((leaf.steps, n_write_pages, ptok)
-                                 + leaf.rest)
-            leaf_pages.append(pages.movedim(1, 0))
-        ids = page_ids[:n_write_pages].to(torch.int64)
-        if ctx is not None:
-            ctx = ctx.take(n_write_pages)
-        return self.write(pool, ids, leaf_pages, vn, ids < spec.n_pages, ctx,
-                          uniform)
+        with trace_mod.span("pageio.write_prefill"):
+            spec = self.spec
+            ptok = spec.page_tokens
+            leaf_pages = []
+            for leaf, dense_leaf in zip(spec.leaves, dense_leaves):
+                toks = dense_leaf[:, 0, : n_write_pages * ptok]
+                pages = toks.reshape((leaf.steps, n_write_pages, ptok)
+                                     + leaf.rest)
+                leaf_pages.append(pages.movedim(1, 0))
+            ids = page_ids[:n_write_pages].to(torch.int64)
+            if ctx is not None:
+                ctx = ctx.take(n_write_pages)
+            return self.write(pool, ids, leaf_pages, vn, ids < spec.n_pages,
+                              ctx, uniform)
 
     def write_dirty(self, pool: PagedKVPool, page_table: torch.Tensor,
                     dense_leaves: list, lengths: torch.Tensor,
@@ -832,22 +861,27 @@ class PageIO:
         epoch: a page's next dirty write re-encrypts it under the new
         epoch's keys (lazy rotation).
         """
-        spec = self.spec
-        s, p = page_table.shape
-        ptok = spec.page_tokens
-        dirty = torch.clamp(lengths.to(torch.int64) // ptok, max=p - 1)
-        pid = page_table.to(torch.int64).gather(1, dirty[:, None])[:, 0]
-        real = active & (pid >= 0)
-        pid = torch.where(real, pid, spec.scratch_page)
-        tok_idx = (dirty[:, None] * ptok
-                   + torch.arange(ptok, device=dirty.device)[None])  # (S, ptok)
-        leaf_pages = []
-        for leaf, dense_leaf in zip(spec.leaves, dense_leaves):
-            idx = tok_idx.reshape((1, s, ptok) + (1,) * len(leaf.rest))
-            idx = idx.expand((leaf.steps, s, ptok) + leaf.rest)
-            page = torch.gather(dense_leaf, 2, idx)
-            leaf_pages.append(page.movedim(0, 1))        # (S, steps, ...)
-        return self.write(pool, pid, leaf_pages, vn, real, ctx, uniform)
+        with trace_mod.span("pageio.write_dirty"):
+            spec = self.spec
+            s, p = page_table.shape
+            ptok = spec.page_tokens
+            with trace_mod.span("pageio.layout"):
+                dirty = torch.clamp(lengths.to(torch.int64) // ptok,
+                                    max=p - 1)
+                pid = page_table.to(torch.int64).gather(
+                    1, dirty[:, None])[:, 0]
+                real = active & (pid >= 0)
+                pid = torch.where(real, pid, spec.scratch_page)
+                tok_idx = (dirty[:, None] * ptok
+                           + torch.arange(ptok, device=dirty.device)[None])
+                leaf_pages = []
+                for leaf, dense_leaf in zip(spec.leaves, dense_leaves):
+                    idx = tok_idx.reshape((1, s, ptok)
+                                          + (1,) * len(leaf.rest))
+                    idx = idx.expand((leaf.steps, s, ptok) + leaf.rest)
+                    page = torch.gather(dense_leaf, 2, idx)
+                    leaf_pages.append(page.movedim(0, 1))  # (S, steps, ...)
+            return self.write(pool, pid, leaf_pages, vn, real, ctx, uniform)
 
     def read_raw(self, pool: PagedKVPool, page_ids: torch.Tensor,
                  ctx: PageKeyCtx | None = None, uniform: bool = False):
@@ -859,34 +893,41 @@ class PageIO:
         entries are ignored, so callers may pad).  The read half of
         resealing.
         """
-        spec, keys = self.spec, self.keys
-        cfg = spec.cfg
-        page_ids = page_ids.to(torch.int64)
-        n = page_ids.shape[0]
-        vns = i64(pool.page_vns[page_ids])
-        real = page_ids < spec.n_pages
-        ok = torch.ones((), dtype=torch.bool, device=page_ids.device)
-        agg = torch.zeros((n, mac.MAC_BYTES), dtype=torch.uint8,
-                          device=page_ids.device)
-        out = []
-        for li, leaf in enumerate(spec.leaves):
-            ct = pool.cts[li][page_ids]
-            pt, macs = _crossing(spec, leaf, ct, page_ids, vns, keys, ctx,
-                                 uniform, write=False)
-            if cfg.verify == "block":
-                stored = pool.block_macs[li][page_ids]
-                ok = ok & ((macs == stored) | ~real[:, None, None]).all()
-            elif cfg.verify == "layer":
-                agg = agg ^ mac.xor_aggregate(macs, axis=1)
-            out.append(_bytes_to_tokens(spec, leaf, pt))
-        if cfg.verify == "layer":
-            stored = pool.page_macs[page_ids]
-            ok = ok & ((agg == stored) | ~real[:, None]).all()
-        if cfg.emulate_tree:
-            ok = ok & emulated_tree_probe(
-                n * sum(leaf.n_blocks for leaf in spec.leaves),
-                device=page_ids.device)
-        return out, ok
+        with trace_mod.span("pageio.read_raw"):
+            spec, keys = self.spec, self.keys
+            cfg = spec.cfg
+            page_ids = page_ids.to(torch.int64)
+            n = page_ids.shape[0]
+            dev = page_ids.device
+            with trace_mod.span("pageio.gather"):
+                vns = i64(pool.page_vns[page_ids])
+            real = page_ids < spec.n_pages
+            ok = torch.ones((), dtype=torch.bool, device=dev)
+            agg = torch.zeros((n, mac.MAC_BYTES), dtype=torch.uint8,
+                              device=dev)
+            out = []
+            for li, leaf in enumerate(spec.leaves):
+                with trace_mod.span("pageio.gather"):
+                    ct = pool.cts[li][page_ids]
+                pt, macs = _crossing(spec, leaf, ct, page_ids, vns, keys,
+                                     ctx, uniform, write=False)
+                with trace_mod.span("pageio.verify"):
+                    if cfg.verify == "block":
+                        stored = pool.block_macs[li][page_ids]
+                        ok = ok & ((macs == stored)
+                                   | ~real[:, None, None]).all()
+                    elif cfg.verify == "layer":
+                        agg = agg ^ mac.xor_aggregate(macs, axis=1)
+                out.append(_bytes_to_tokens(spec, leaf, pt))
+            with trace_mod.span("pageio.verify"):
+                if cfg.verify == "layer":
+                    stored = pool.page_macs[page_ids]
+                    ok = ok & ((agg == stored) | ~real[:, None]).all()
+                if cfg.emulate_tree:
+                    ok = ok & emulated_tree_probe(
+                        n * sum(leaf.n_blocks for leaf in spec.leaves),
+                        device=dev)
+            return out, ok
 
     def reseal(self, pool: PagedKVPool, page_ids: torch.Tensor, vn: int,
                old_ctx: PageKeyCtx | None = None,
@@ -900,14 +941,15 @@ class PageIO:
         and writes nothing when it fails: resealing tampered bytes would
         launder them under fresh, valid MACs.
         """
-        leaf_pages, ok = self.read_raw(pool, page_ids, old_ctx, uniform)
-        ok = bool(ok)
-        if not ok:
-            return pool, ok
-        page_ids = page_ids.to(torch.int64)
-        real = page_ids < self.spec.n_pages
-        return self.write(pool, page_ids, leaf_pages, vn, real, new_ctx,
-                          uniform), ok
+        with trace_mod.span("pageio.reseal"):
+            leaf_pages, ok = self.read_raw(pool, page_ids, old_ctx, uniform)
+            ok = bool(ok)
+            if not ok:
+                return pool, ok
+            page_ids = page_ids.to(torch.int64)
+            real = page_ids < self.spec.n_pages
+            return self.write(pool, page_ids, leaf_pages, vn, real, new_ctx,
+                              uniform), ok
 
     def copy(self, pool: PagedKVPool, src_ids, dst_ids, vn: int,
              src_ctx: PageKeyCtx | None = None,
@@ -923,8 +965,9 @@ class PageIO:
         scratch page on both sides.  Returns ``(pool, ok)``; nothing is
         written when ``ok`` fails (see :meth:`migrate`).
         """
-        return self.migrate(pool, self.spec, pool, src_ids, dst_ids, vn,
-                            src_ctx, dst_ctx)
+        with trace_mod.span("pageio.copy"):
+            return self.migrate(pool, self.spec, pool, src_ids, dst_ids, vn,
+                                src_ctx, dst_ctx)
 
     def migrate(self, src_pool: PagedKVPool, src_spec: PageSpec,
                 dst_pool: PagedKVPool, src_ids, dst_ids, vn: int,

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
 
@@ -25,7 +26,9 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
     ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does.
     """
-    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    with trace_mod.span("model.sample"):
+        return torch.argmax(logits[:, -1, :], dim=-1).to(
+            torch.int32)[:, None]
 
 
 def make_prefill_step(arch, cfg, max_len: int) -> Callable:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.layout import tree_flatten, tree_unflatten
 from repro_torch.models.layers import DTYPES, ParamSpec, tree_map
+from repro_torch.obs import trace as trace_mod
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "opt_state_specs",
            "adamw_update"]
@@ -68,33 +69,34 @@ def adamw_update(grads: Any, params: Any, state: OptState,
                  cfg: AdamWConfig) -> tuple:
     """Returns ``(new_params, new_state, metrics)``; ``metrics`` holds
     the pre-clip ``grad_norm`` and the step's ``lr`` (float32 scalars)."""
-    flat_p, treedef = tree_flatten(params)
-    flat_g = tree_flatten(grads)[0]
-    flat_m = tree_flatten(state.mu)[0]
-    flat_v = tree_flatten(state.nu)[0]
-    # Global-norm clip in f32.
-    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat_g))
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    count = state.count + 1
-    lr = _schedule(cfg, count)
-    c1 = 1.0 - cfg.b1 ** count.float()
-    c2 = 1.0 - cfg.b2 ** count.float()
-    sdtype = DTYPES[cfg.state_dtype]
+    with trace_mod.span("optimizer.adamw"):
+        flat_p, treedef = tree_flatten(params)
+        flat_g = tree_flatten(grads)[0]
+        flat_m = tree_flatten(state.mu)[0]
+        flat_v = tree_flatten(state.nu)[0]
+        # Global-norm clip in f32.
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat_g))
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        count = state.count + 1
+        lr = _schedule(cfg, count)
+        c1 = 1.0 - cfg.b1 ** count.float()
+        c2 = 1.0 - cfg.b2 ** count.float()
+        sdtype = DTYPES[cfg.state_dtype]
 
-    def upd(p, g, m, v):
-        gf = g.float() * scale
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
-        step = (mf / c1) / (torch.sqrt(vf / c2) + cfg.eps)
-        if cfg.weight_decay and p.dim() >= 2:      # decay matrices only
-            step = step + cfg.weight_decay * p.float()
-        new_p = p.float() - lr * step
-        return new_p.to(p.dtype), mf.to(sdtype), vf.to(sdtype)
+        def upd(p, g, m, v):
+            gf = g.float() * scale
+            mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+            vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+            step = (mf / c1) / (torch.sqrt(vf / c2) + cfg.eps)
+            if cfg.weight_decay and p.dim() >= 2:      # decay matrices only
+                step = step + cfg.weight_decay * p.float()
+            new_p = p.float() - lr * step
+            return new_p.to(p.dtype), mf.to(sdtype), vf.to(sdtype)
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m,
-                                                  flat_v, strict=True)]
-    new_p, new_m, new_v = (tree_unflatten(treedef, [o[i] for o in out])
-                           for i in range(3))
-    return new_p, OptState(new_m, new_v, count), {"grad_norm": gnorm,
-                                                  "lr": lr}
+        out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m,
+                                                      flat_v, strict=True)]
+        new_p, new_m, new_v = (tree_unflatten(treedef, [o[i] for o in out])
+                               for i in range(3))
+        return new_p, OptState(new_m, new_v, count), {"grad_norm": gnorm,
+                                                      "lr": lr}

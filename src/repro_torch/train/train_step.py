@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.layout import tree_flatten, tree_unflatten
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
+from repro_torch.obs import trace as trace_mod
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 __all__ = ["make_loss_fn", "make_train_step", "make_secure_train_step",
@@ -37,15 +38,16 @@ def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
     """``((loss, metrics), grads)`` of ``loss_fn(params, batch) -> (loss,
     metrics)``: each leaf's gradient by autograd (zeros where the loss
     does not reach it, as ``jax.grad``), everything returned detached."""
-    leaves, treedef = tree_flatten(params)
-    leaves = [p.detach().requires_grad_() for p in leaves]
-    with torch.enable_grad():
-        loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for g, p in zip(grads, leaves)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(treedef, grads)
+    with trace_mod.span("train.forward_backward"):
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics), tree_unflatten(treedef, grads)
 
 
 def make_train_step(arch, cfg, opt_cfg: AdamWConfig) -> Callable:

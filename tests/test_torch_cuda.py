@@ -962,3 +962,86 @@ def test_profiled_seda_tick_on_the_card_keeps_its_tokens(card):
     assert all(torch.equal(a, b) for a, b in zip(pool, want_pool))
     assert set(charged) == {"aes_ctr_keystream", "fused_crypt_mac",
                             "fused_crypt_mac_write"}
+
+
+def _span_chain(events, e) -> list:
+    by_id = {x["id"]: x for x in events}
+    out = []
+    while e.get("parent") is not None:
+        e = by_id[e["parent"]]
+        out.append(e["name"])
+    return out
+
+
+def test_program_spans_on_the_card_wrap_each_launch(card):
+    """With the program's spans on, every launch of a hand-written kernel
+    sits in one ``kernel.<name>`` span under a page crossing under its
+    tick phase, the weights crossing's under ``crossing.*``; tokens equal
+    the run with spans off, and with profiler ranges on the device trace
+    carries the spans' names."""
+    from repro_torch.configs import get_arch
+    from repro_torch.obs import trace
+    from repro_torch.serve.engine import SecureServingEngine
+    params = _smoke_params()
+    arch = get_arch("minitron-4b")
+    cfg = arch.make_smoke_config()
+    runs = []
+    for spans in (False, True):
+        reg = TenantRegistry(KeyHierarchy(5, device=card), max_tenants=2)
+        for t in "ab":
+            reg.register(t)
+        sessions = [reg.open_session(t) for t in "ab"]
+        eng = SecureServingEngine(
+            arch, cfg, params, scheme="seda", use_kernel=True, max_slots=2,
+            page_tokens=4, pages_per_slot=4, registry=reg, rotate_every=2,
+            trace=True, device=card)
+        if spans:
+            trace.enable()
+        reset_launches()
+        try:
+            rids = [eng.submit(prompt=p, max_new_tokens=6, session=s)
+                    for p, s in zip(([5, 9, 3, 7, 1], [2, 8, 6]), sessions)]
+            eng.run()
+        finally:
+            trace.disable()
+        runs.append(([eng.requests[r].generated for r in rids],
+                     eng.tracer.events(), dict(LAUNCHES)))
+    (off_tokens, _, _), (tokens, events, launches) = runs
+    assert tokens == off_tokens
+    kernel_spans = [e for e in events if e["name"].startswith("kernel.")]
+    counts: dict = {}
+    for e in kernel_spans:
+        counts[e["name"][len("kernel."):]] = counts.get(
+            e["name"][len("kernel."):], 0) + 1
+    assert counts == {k: v for k, v in launches.items() if v}
+    for e in kernel_spans:
+        chain = _span_chain(events, e)
+        assert chain[0] in ("pageio.crypt",), chain
+        assert any(n.startswith("pageio.") and n != "pageio.crypt"
+                   for n in chain), chain
+        assert chain[-1] == "tick" and chain[-2] in (
+            "tick_begin", "decode_dispatch", "tick_end"), chain
+    keys = SecureKeys.derive(6, device=card)
+    from repro_torch.core import secure_memory as sm
+    tree = {"w": torch.randn(64, 96, device=card)}
+    spec = sm.make_region_spec(tree)
+    process = trace.enable(ranges=True)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            state = sm.protect(tree, keys, spec)
+            _, ok = sm.unprotect(state, keys, spec)
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    assert bool(ok)
+    got = process.events()
+    for name in ("kernel.otp_xor", "kernel.nh_hash_kernel_call"):
+        spans_named = [e for e in got if e["name"] == name]
+        assert spans_named, name
+        assert all(_span_chain(got, e)[-1] in ("crossing.protect",
+                                                "crossing.unprotect")
+                   for e in spans_named)
+    names = {e.name for e in prof.events()}
+    assert {"crossing.protect", "kernel.otp_xor"} <= names

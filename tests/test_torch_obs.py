@@ -16,6 +16,8 @@ audit and SLO wiring) against the JAX package.
 * The SLO cases of ``tests/test_slo.py`` on the port's engine.
 """
 
+import contextlib
+import gc
 import json
 import re
 import time
@@ -38,6 +40,7 @@ from repro_torch.obs.audit import AuditLog
 from repro_torch.obs.metrics import (ENGINE_COUNTERS, Histogram,
                                      MetricsRegistry, StatsView)
 from repro_torch.obs.slo import SLOMonitor, merge_health
+from repro_torch.obs import trace as trace_mod
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.serve.engine import STAT_NAMES, SecureServingEngine
 from repro_torch.tenancy import KeyHierarchy, TenantRegistry
@@ -247,6 +250,77 @@ class TestTrace:
         assert len(events) == 8
         assert events[0]["name"] == "s12"
 
+    def test_ring_buffer_counts_what_it_drops(self):
+        tr = SpanTracer(capacity=8)
+        for i in range(8):
+            tr.add(f"s{i}", 0, 1000)
+        assert tr.dropped == 0
+        for i in range(5):
+            with tr.span("late"):
+                pass
+        assert tr.dropped == 5 and len(tr) == 8
+        tr.clear()
+        assert tr.dropped == 0 and len(tr) == 0
+
+    def test_parent_is_the_innermost_open_span(self):
+        tr = SpanTracer()
+        with tr.span("a"):
+            with tr.span("b", k=1):
+                tr.annotate(late=2)
+            tr.add("c", 0, 1)
+        a, b, c = (next(e for e in tr.events() if e["name"] == n)
+                   for n in "abc")
+        assert a["parent"] is None
+        assert b["parent"] == a["id"] and c["parent"] == a["id"]
+        assert b["args"] == {"k": 1, "late": 2}
+        assert len({a["id"], b["id"], c["id"]}) == 3
+
+    def test_spans_off_make_no_clock_or_profiler_call(self, monkeypatch):
+        calls = []
+        real = time.perf_counter_ns
+
+        class Clock:
+            @staticmethod
+            def perf_counter_ns():
+                calls.append(1)
+                return real()
+
+        monkeypatch.setattr(trace_mod, "time", Clock)
+        monkeypatch.setattr(trace_mod, "_record_function", lambda name: (
+            calls.append(name), contextlib.nullcontext())[1])
+        assert trace_mod._active is None
+        with trace_mod.span("pageio.read", x=1) as sp:
+            trace_mod.record("request.queued", 0, rid=1)
+        assert sp is trace_mod.span("model.decode") and calls == []
+        process = trace_mod.enable(SpanTracer())
+        try:
+            with trace_mod.span("pageio.read"):
+                pass
+            assert len(process) == 1 and calls == [1, 1]
+            trace_mod.enable(ranges=True)
+            with trace_mod.span("model.decode"):
+                pass
+            assert "model.decode" in calls
+        finally:
+            assert trace_mod.disable() is process
+        assert trace_mod._active is None and not trace_mod._ranges
+
+    def test_gc_passes_are_spans_while_on(self):
+        process = trace_mod.enable(SpanTracer())
+        try:
+            with trace_mod.span("model.decode"):
+                gc.collect()
+        finally:
+            trace_mod.disable()
+        events = process.events()
+        (outer,) = [e for e in events if e["name"] == "model.decode"]
+        passes = [e for e in events if e["name"] == "gc"]
+        assert any(e["args"]["generation"] == 2 and
+                   e["parent"] == outer["id"] for e in passes)
+        n = len(process)
+        gc.collect()
+        assert len(process) == n
+
     def test_phase_spans_nested(self, smoke, prompts):
         eng = _engine(smoke, scheme="seda", use_kernel=True, trace=True)
         for p in prompts[:2]:
@@ -427,6 +501,177 @@ def test_snapshot_prometheus_and_proof_audit(smoke, prompts):
         _engine(smoke, scheme="off").export_trace()
 
 
+@pytest.fixture(scope="module")
+def span_runs(smoke, prompts):
+    """A two-tenant seda engine (kernel wrappers on, key rotation every
+    other tick) run with the program's spans off, then on: ``{on:
+    (engine, rids)}``."""
+    runs = {}
+    for on in (False, True):
+        reg = TenantRegistry(KeyHierarchy(2, device="cpu"), max_tenants=2)
+        for name in "ab":
+            reg.register(name)
+        sessions = [reg.open_session(name) for name in "ab"]
+        eng = _engine(smoke, scheme="seda", use_kernel=True, registry=reg,
+                      rotate_every=2, n_pages=16, trace=True)
+        if on:
+            trace_mod.enable()
+        try:
+            rids = [eng.submit(prompt=p, max_new_tokens=5,
+                               session=sessions[i % 2])
+                    for i, p in enumerate(prompts)]
+            eng.run()
+        finally:
+            trace_mod.disable()
+        runs[on] = (eng, rids)
+    return runs
+
+
+def _chain(events, e) -> list:
+    """The names of ``e``'s ancestors, innermost first."""
+    by_id = {x["id"]: x for x in events}
+    out = []
+    while e.get("parent") is not None:
+        e = by_id[e["parent"]]
+        out.append(e["name"])
+    return out
+
+
+def test_tokens_equal_with_program_spans_on_and_off(span_runs):
+    (off, off_rids), (on, on_rids) = span_runs[False], span_runs[True]
+    assert [off.requests[r].generated for r in off_rids] == \
+        [on.requests[r].generated for r in on_rids]
+    assert dict(off.stats) == dict(on.stats)
+    for a, b in zip((*off.pool.cts, off.pool.page_macs, off.pool.pool_mac),
+                    (*on.pool.cts, on.pool.page_macs, on.pool.pool_mac)):
+        assert np.array_equal(a.numpy(), b.numpy())
+    assert {e["name"] for e in off.tracer.events()} == {
+        "tick", "tick_begin", "decode_dispatch", "decode_collect",
+        "tick_end"}
+
+
+def test_program_spans_nest_under_the_tick_phases(span_runs):
+    """Page IO and model spans sit under the tick phase that ran them
+    (kernel spans wrap launches, so only on the card, in
+    ``tests/test_torch_cuda.py``); each request's wait and admission
+    carry its rid; the dispatch carries the pages it crossed."""
+    eng, rids = span_runs[True]
+    events = eng.tracer.events()
+    names = {e["name"] for e in events}
+    assert {"pageio.read", "pageio.write_dirty", "pageio.write",
+            "pageio.write_prefill", "pageio.gather", "pageio.bind",
+            "pageio.crypt", "pageio.verify", "pageio.layout",
+            "pageio.scatter", "model.decode", "model.prefill",
+            "model.sample", "request.queued", "request.admit"} <= names
+    assert not any(n.startswith("kernel.") for n in names)
+    for e in events:
+        chain = _chain(events, e)
+        if e["name"] in ("pageio.read", "model.decode"):
+            assert chain == ["decode_dispatch", "tick"], e["name"]
+        elif e["name"] == "pageio.write_prefill":
+            assert chain == ["request.admit", "tick_begin", "tick"]
+        elif e["name"] in ("pageio.gather", "pageio.bind", "pageio.verify",
+                           "pageio.layout", "pageio.crypt",
+                           "pageio.scatter"):
+            assert chain[0].startswith("pageio."), (e["name"], chain)
+            assert chain[-1] == "tick"
+    queued = {e["args"]["rid"]: e for e in events
+              if e["name"] == "request.queued"}
+    assert sorted(queued) == sorted(rids)
+    assert [queued[r]["args"]["tenant"] for r in rids] == ["a", "b", "a"]
+    admits = [e for e in events if e["name"] == "request.admit"]
+    assert sorted(e["args"]["rid"] for e in admits) == sorted(rids)
+    for r in rids:
+        (admit,) = [e for e in admits if e["args"]["rid"] == r]
+        assert queued[r]["ts"] <= admit["ts"]
+    dispatch = [e["args"] for e in events if e["name"] == "decode_dispatch"]
+    assert len(dispatch) == eng.stats["decode_steps"]
+    for args in dispatch:
+        assert args["pages_crossed"] % eng.max_slots == 0
+        assert 0 < args["pages_live"] <= args["pages_crossed"]
+
+
+def test_engine_tick_without_spans_makes_no_profiler_call(
+        smoke, prompts, monkeypatch):
+    """Spans off: an engine without a tracer makes no clock call in the
+    span helper and no record_function call; one with a tracer records
+    its tick and phases, still with no record_function call."""
+    calls = []
+    real = time.perf_counter_ns
+
+    class Clock:
+        @staticmethod
+        def perf_counter_ns():
+            calls.append("clock")
+            return real()
+
+    monkeypatch.setattr(trace_mod, "time", Clock)
+    monkeypatch.setattr(trace_mod, "_record_function", lambda name: (
+        calls.append(name), contextlib.nullcontext())[1])
+    for trace in (None, True):
+        eng = _engine(smoke, scheme="seda", use_kernel=True, trace=trace)
+        eng.submit(prompt=prompts[0], max_new_tokens=3)
+        eng.step()
+        eng.step()
+        if trace is None:
+            assert calls == [] and eng.tracer is None
+    assert set(calls) == {"clock"}
+    assert len(eng.tracer) == 10 and len(calls) == 20
+
+
+def test_secure_train_step_spans_nest_the_weights_crossing():
+    """A secure train step with the program's spans on (outside any
+    engine: the process tracer): unprotect, forward/backward, AdamW and
+    protect in that order, the crossing's stages inside their crossing;
+    its new state equals the step's with the spans off."""
+    import torch
+    from repro_torch.core.secure_exec import SecureExecutor
+    from repro_torch.core.secure_memory import SecureKeys
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    def step(spans):
+        params = {"w": torch.linspace(-1, 1, 96).reshape(8, 12),
+                  "b": torch.zeros(12)}
+        cfg = AdamWConfig()
+        ex = SecureExecutor("seda", SecureKeys.derive(3, device="cpu"))
+        region = ex.region_spec(params)
+        state = ex.protect(params, region)
+
+        def loss_fn(p, batch):
+            loss = ((batch @ p["w"] + p["b"]) ** 2).mean()
+            return loss, {}
+
+        def train_step(s, opt, batch):
+            params, ok = ex.unprotect(s, region)
+            (loss, _), grads = ts.value_and_grad(loss_fn, params, batch)
+            params, opt, _ = ts.adamw_update(grads, params, opt, cfg)
+            return ex.protect(params, region, step=1), ok
+
+        process = trace_mod.enable() if spans else None
+        try:
+            new, ok = train_step(state, init_opt_state(params, cfg),
+                                 torch.ones(3, 8))
+        finally:
+            trace_mod.disable()
+        return new, bool(ok), process
+
+    (off, ok_off, _), (on, ok_on, process) = step(False), step(True)
+    assert ok_off and ok_on
+    assert all(torch.equal(a, b) for a, b in zip(off.ciphertexts,
+                                                 on.ciphertexts))
+    events = process.events()
+    top = [e["name"] for e in sorted(events, key=lambda e: e["ts"])
+           if e["parent"] is None and e["name"] != "gc"]
+    assert top == ["crossing.unprotect", "train.forward_backward",
+                   "optimizer.adamw", "crossing.protect"]
+    for e in events:
+        if e["name"] in ("crossing.bind", "crossing.to_bytes",
+                         "crossing.from_bytes"):
+            assert _chain(events, e)[-1] in ("crossing.protect",
+                                             "crossing.unprotect")
+
+
 def test_report_verdict_hooks(smoke):
     eng = _engine(smoke, scheme="seda")
     seen = []
@@ -455,7 +700,9 @@ def test_launcher_observability_files(tmp_path):
     assert snap["counters"] == got["stats"]
     assert snap["counters"]["rotations"] > 0
     events = json.loads(open(out["trace.json"]).read())["traceEvents"]
-    assert {"tick", "decode_dispatch"} <= {e["name"] for e in events}
+    assert {"tick", "decode_dispatch", "pageio.read", "model.decode",
+            "request.queued"} <= {e["name"] for e in events}
+    assert trace_mod._active is None
     log = AuditLog.load(out["audit.jsonl"])
     assert log.verify_chain() and len(log) == got["stats"]["audit_events"]
     assert "# TYPE repro_rotations counter" in open(out["metrics.prom"]).read()
