@@ -139,8 +139,8 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              launch, the deferred MAC holds; tok/s, host ms per tick,
              peak memory, the weights a tick reads against the card's
              bytes rate, and a CUPTI trace of 3 steady ticks (device busy,
-             idle share, launches, crypto ms; for MoE each stage's device
-             ms, the dispatch's argsort, gather and scatter among them).
+             idle share, launches, crypto ms; the model's steps replay
+             CUDA graphs, so no stage of them is split out).
              deepseek: a flipped byte of a live ``c_kv`` page and of a
              ``k_pe`` page each raise ``IntegrityError``; its requests
              over 4 tenants rotating every tick give the single-tenant
@@ -166,8 +166,8 @@ phase's line with ``"ok": false`` and exits non-zero without a result:
              8-layer periods) through the archs phase's cell (seda
              kernels/plain/off tokens and pools equal, B1-B3, a k and a
              v page tamper, 4 tenants with B4-B6).  Both with a CUPTI
-             trace of 3 steady ticks and each Mamba decode stage's (and
-             MoE stage's) device ms, against the bytes a tick reads:
+             trace of 3 steady ticks (mamba2's dense loop also each Mamba
+             decode stage's device ms), against the bytes a tick reads:
              weights, and the recurrent state in and out.
 17. train  — secure training, each model after the earlier one is freed.
              In float32: the smoke configs of smollm, pixtral (image
@@ -2641,15 +2641,6 @@ def _stage_ms(step, cfg, n_ticks: int) -> dict:
     return out
 
 
-def _profile_arch(arch, cfg, params, prompts, n_ticks: int = 3) -> dict:
-    """The profile phase's tick breakdown, and each MoE or Mamba stage's
-    device ms per tick from a second trace with the stages annotated."""
-    out, eng, _ = _profile_ticks(arch, cfg, params, prompts, "seda", True,
-                                 n_ticks=n_ticks)
-    out.update(_stage_ms(eng.step, cfg, n_ticks))
-    return out
-
-
 def _arch_smoke_f32(name: str) -> dict:
     """The smoke config (float32) served under seda with the kernels
     gives the plain loop's tokens.  An MoE row competes for expert
@@ -2767,7 +2758,7 @@ def _arch_cell(name: str) -> dict:
                              f"{len(flat)}: the tokens do not depend on the "
                              "KV pages")
     del pools
-    profile = _profile_arch(arch, cfg, params, prompts)
+    profile = _profile_ticks(arch, cfg, params, prompts, "seda", True)[0]
     state_bytes = _state_bytes(cfg, SERVE["n_requests"],
                                PAGES_PER_SLOT * SERVE["page_tokens"])
     bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3

@@ -107,7 +107,9 @@ def block_prefill(cfg, kind: LayerKind, params, x, positions, max_len: int):
     """Forward + this block's decode cache (padded to max_len)."""
     _check(kind)
     h = rms_norm(x, params["norm_mixer"])
-    length = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    # Filled on the device: a copy from the host would sync the stream
+    # (and could not be captured in a CUDA graph).
+    length = torch.full((), x.shape[1], dtype=torch.int32, device=x.device)
     if kind.mixer == "attn":
         out, (k, v) = attn_mod.attention(params["attn"], h, positions,
                                          q_block=cfg.q_block,

@@ -225,13 +225,19 @@ def lm_loss(cfg: LMConfig, params, batch) -> tuple:
 
 
 def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
-               last_pos: Optional[int] = None):
+               last_pos=None, graph=None):
     """Full-sequence prefill: returns (last_logits (B, 1, V), caches).
 
     ``last_pos`` selects the position whose logits are returned (the
-    engine right-pads prompts to a power-of-two length).
+    engine right-pads prompts to a power-of-two length): an int, or a
+    (1,) int64 tensor, as a graph's static input is.  ``graph`` (a
+    :class:`~repro_torch.models.step_graph.StepGraph` captured over a
+    call of this function at ``batch``'s shape) replays that call on
+    ``batch`` and ``last_pos`` instead.
     """
     with trace_mod.span("model.prefill"):
+        if graph is not None:
+            return graph.replay(batch, last_pos)
         x, positions = _embed_tokens(cfg, params, batch)
         caches = []
         for seg_params, (kinds, steps) in zip(params["segments"],
@@ -244,14 +250,26 @@ def lm_prefill(cfg: LMConfig, params, batch, max_len: int,
                     per_kind[j].append(cache)
             caches.append([_stack_caches(cs) for cs in per_kind])
         x = rms_norm(x, params["final_norm"])
-        last = (x[:, -1:] if last_pos is None
-                else x[:, last_pos: last_pos + 1])
+        if last_pos is None:
+            last = x[:, -1:]
+        elif isinstance(last_pos, torch.Tensor):
+            last = x.index_select(1, last_pos)
+        else:
+            last = x[:, last_pos: last_pos + 1]
         return _head(cfg, params, last), caches
 
 
-def lm_decode(cfg: LMConfig, params, tokens: torch.Tensor, caches):
-    """One decode step: tokens (B, 1) -> (logits (B, 1, V), new caches)."""
+def lm_decode(cfg: LMConfig, params, tokens: torch.Tensor, caches,
+              graph=None):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), new caches).
+
+    ``graph`` (a :class:`~repro_torch.models.step_graph.StepGraph`
+    captured over a call of this function at the caches' shapes)
+    replays that call on ``tokens`` and ``caches`` instead.
+    """
     with trace_mod.span("model.decode"):
+        if graph is not None:
+            return graph.replay(tokens, caches)
         x = params["embed"][tokens]
         new_caches = []
         for seg_params, seg_cache, (kinds, steps) in zip(

@@ -5,7 +5,8 @@ imports no JAX, but the port imports nothing of it).  Every metric is
 **declared once** with a help string; the canonical name sets below
 (:data:`ENGINE_COUNTERS`, :data:`CLUSTER_COUNTERS`, ...) are the
 reference's, help strings included (the profiler gauges' "HLO" reads as
-the port's attributed aten ops).
+the port's attributed aten ops).  :data:`GRAPH_COUNTERS` are the port's
+own.
 
 Compatibility: :class:`StatsView` wraps a registry's counters in the
 old dict API (``stats["admitted"] += 1``, ``stats.items()``,
@@ -26,8 +27,8 @@ from collections.abc import MutableMapping
 from typing import Callable, Optional
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "StatsView",
-           "ENGINE_COUNTERS", "CLUSTER_COUNTERS", "ENGINE_GAUGES",
-           "ENGINE_HISTOGRAMS", "CLUSTER_HISTOGRAMS"]
+           "ENGINE_COUNTERS", "GRAPH_COUNTERS", "CLUSTER_COUNTERS",
+           "ENGINE_GAUGES", "ENGINE_HISTOGRAMS", "CLUSTER_HISTOGRAMS"]
 
 
 # -- canonical declarations (the single source of truth for names) ----------
@@ -77,6 +78,17 @@ ENGINE_COUNTERS = {
                             "integrity-failure-rate alarm",
     "slo_stuck_ticks": "watchdog firings: no tick end within N x the "
                        "rolling median tick",
+}
+
+# The port's own engine counters, which the reference does not have: the
+# CUDA graphs of the model's serving steps.  They stay out of
+# ENGINE_COUNTERS, so the reference's set and STAT_NAMES are unchanged.
+GRAPH_COUNTERS = {
+    "decode_graph_replays": "batched decodes whose model step replayed its "
+                            "page bucket's CUDA graph",
+    "prefill_graph_replays": "padded prefills whose model step replayed "
+                             "its length's CUDA graph",
+    "graph_captures": "CUDA graphs captured over the model's serving steps",
 }
 
 CLUSTER_COUNTERS = {

@@ -159,7 +159,9 @@ class SpanTracer:
     def events(self) -> list:
         """The buffered spans as Chrome trace-event dicts (oldest first)."""
         out = []
-        for name, t0, t1, span_id, parent, args in self._events:
+        # A snapshot: building the dicts may run the collector, whose
+        # ``gc`` span lands in this ring while it is read.
+        for name, t0, t1, span_id, parent, args in list(self._events):
             event = {
                 "name": name,
                 "ph": "X",

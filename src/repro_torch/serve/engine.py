@@ -123,6 +123,7 @@ from repro_torch.core.secure_exec import SCHEMES
 from repro_torch.core.secure_memory import SecureKeys
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import tree_map
+from repro_torch.models.step_graph import StepGraph
 from repro_torch.obs import audit as audit_mod
 from repro_torch.obs import metrics as metrics_mod
 from repro_torch.obs import profiler as profiler_mod
@@ -488,6 +489,12 @@ class SecureServingEngine(SubmitAPI):
         self._init_obs(trace, audit)
         self.page_table = kvp.TwoLevelPageTable(max_slots, pages_per_slot)
         self._decode_fns: dict = {}
+        # CUDA graphs of the model's steps on the card, captured together
+        # at the first one the engine runs (_step_graph).  Off, the steps
+        # run eagerly: while _detached_decode swaps clones in (the graphs
+        # read the engine's own state).
+        self._graphs: Optional[dict] = None
+        self._graphs_off = False
         # Auditable Merkle level over the page MACs: the listener is
         # O(1); hashing waits for _tick_end's sync.
         self.merkle = None
@@ -546,8 +553,10 @@ class SecureServingEngine(SubmitAPI):
         hash-chained security log.
         """
         self.metrics = metrics_mod.MetricsRegistry()
-        for name, help_ in metrics_mod.ENGINE_COUNTERS.items():
-            self.metrics.counter(name, help_)
+        for counters in (metrics_mod.ENGINE_COUNTERS,
+                         metrics_mod.GRAPH_COUNTERS):
+            for name, help_ in counters.items():
+                self.metrics.counter(name, help_)
         self._stats = metrics_mod.StatsView(self.metrics)
         g = metrics_mod.ENGINE_GAUGES
         self.metrics.gauge("pool_free_pages", g["pool_free_pages"],
@@ -685,8 +694,9 @@ class SecureServingEngine(SubmitAPI):
         for j, idx in enumerate(self.paged_idx):
             leaves[idx] = dense[j]
         for idx, steps in self.len_leaves:
-            leaves[idx] = lengths.to(torch.int32)[None, :].expand(
-                steps, self.max_slots)
+            # A copy, not an expanded view: a graph's static input is
+            # written by copy_, which refuses a self-overlapping target.
+            leaves[idx] = lengths.to(torch.int32).repeat(steps, 1)
         for j, idx in enumerate(self.onchip_idx):
             leaves[idx] = self.onchip[j]
         return kvp.cache_unflatten(self._cache_tree, leaves)
@@ -709,8 +719,9 @@ class SecureServingEngine(SubmitAPI):
             dense, ok = io.read(self.pool, page_table, lengths, read_ctx,
                                 uniform)
             caches = self._merge_cache_leaves(dense, lengths)
-            logits, new_caches = lm_mod.lm_decode(cfg, self.params, tokens,
-                                                  caches)
+            logits, new_caches = lm_mod.lm_decode(
+                cfg, self.params, tokens, caches,
+                graph=self._step_graph("decode", page_table.shape[1]))
             tok = greedy_sample(logits)                      # (S, 1)
             new_leaves = kvp.cache_leaves(new_caches)
             io.write_dirty(self.pool, page_table,
@@ -725,20 +736,79 @@ class SecureServingEngine(SubmitAPI):
 
         return decode_fn
 
+    def _step_graph(self, kind: str, key: int):
+        """The CUDA graph of one model step, ``kind`` ``"decode"`` by
+        page bucket or ``"prefill"`` by padded length, counting its
+        replay; None where the step runs eagerly: off the card, and on
+        the clones :meth:`_detached_decode` swaps in.  The first call on
+        the card captures every graph the engine can pick."""
+        if self.device.type != "cuda" or self._graphs_off:
+            return None
+        if self._graphs is None:
+            self._graphs = self._capture_graphs()
+        graph = self._graphs[kind].get(key)
+        if graph is not None:
+            self.stats[f"{kind}_graph_replays"] += 1
+        return graph
+
+    def _capture_graphs(self) -> dict:
+        """One graph per shape the engine can pick: ``lm_decode`` for
+        each decode bucket (the pow2 page counts up to
+        ``pages_per_slot``) and, when prefills are padded, ``lm_prefill``
+        for each padded length.  The static inputs are zeros, and the
+        on-chip state the engine's own tensors; one side stream and one
+        memory pool serve every capture."""
+        cfg, params, max_len = self.cfg, self.params, self.max_len
+        dev, s = self.device, self.max_slots
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        graphs: dict = {"decode": {}, "prefill": {}}
+        for bucket in sorted({kvp.page_count_bucket(n, self.pages_per_slot)
+                              for n in range(1, self.pages_per_slot + 1)}):
+            dense = [torch.zeros((leaf.steps, s, bucket * self.page_tokens)
+                                 + leaf.rest,
+                                 dtype=kvp._torch_dtype(leaf.dtype),
+                                 device=dev)
+                     for leaf in self.spec.leaves]
+            lengths = torch.zeros((s,), dtype=torch.int64, device=dev)
+            graphs["decode"][bucket] = StepGraph(
+                lambda tokens, caches: lm_mod.lm_decode(cfg, params, tokens,
+                                                        caches),
+                torch.zeros((s, 1), dtype=torch.int64, device=dev),
+                self._merge_cache_leaves(dense, lengths), pool=pool,
+                stream=stream)
+        if self.prefill_buckets:
+            for n in sorted({_bucket_len(n, max_len)
+                             for n in range(1, max_len + 1)}):
+                graphs["prefill"][n] = StepGraph(
+                    lambda batch, last_pos: lm_mod.lm_prefill(
+                        cfg, params, batch, max_len, last_pos),
+                    {"tokens": torch.zeros((1, n), dtype=torch.int64,
+                                           device=dev)},
+                    torch.full((1,), n - 1, dtype=torch.int64, device=dev),
+                    pool=pool, stream=stream)
+        self.stats["graph_captures"] += (len(graphs["decode"])
+                                         + len(graphs["prefill"]))
+        return graphs
+
     def _prefill(self, seq: list):
         """Run (bucketed) prefill for one request's token sequence:
-        (token, paged leaves, on-chip leaves)."""
+        (token, paged leaves, on-chip leaves).  A padded prefill on the
+        card replays its length's graph."""
         lp = len(seq)
-        padded = seq
+        padded, graph, last_pos = seq, None, lp - 1
         if self.prefill_buckets:
             padded = seq + [0] * (_bucket_len(lp, self.max_len) - lp)
+            graph = self._step_graph("prefill", len(padded))
         if len(padded) not in self._prefill_shapes:
             self._prefill_shapes.add(len(padded))
             self.stats["prefill_compiles"] += 1
         tokens = torch.tensor([padded], dtype=torch.int64, device=self.device)
+        if graph is not None:
+            last_pos = torch.full((1,), last_pos, dtype=torch.int64,
+                                  device=self.device)
         logits, caches = lm_mod.lm_prefill(self.cfg, self.params,
                                            {"tokens": tokens}, self.max_len,
-                                           last_pos=lp - 1)
+                                           last_pos=last_pos, graph=graph)
         leaves = kvp.cache_leaves(caches)
         return (greedy_sample(logits), [leaves[i] for i in self.paged_idx],
                 [leaves[i] for i in self.onchip_idx])
@@ -1196,11 +1266,14 @@ class SecureServingEngine(SubmitAPI):
             for f in pool))
         self.onchip = [t.clone() for t in onchip]
         self.page_io.write_listeners = []
+        # The graphs read the engine's own state, not these clones.
+        graphs_off, self._graphs_off = self._graphs_off, True
         try:
             yield
         finally:
             self._pool, self.onchip = pool, onchip
             self.page_io.write_listeners = listeners
+            self._graphs_off = graphs_off
 
     def profile(self, buckets=None, uniform: bool = False,
                 refresh: bool = False) -> dict:

@@ -246,18 +246,20 @@ def cache_leaves(node: Any) -> list:
 
 def cache_unflatten(template: Any, leaves: list) -> Any:
     """Rebuild ``template``'s structure with ``leaves`` in flat order."""
-    it = iter(leaves)
+    return _unflatten(template, iter(leaves))
 
-    def build(node):
-        if _is_leaf(node):
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if hasattr(node, "_fields"):
-            return type(node)(*(build(c) for c in node))
-        return type(node)(build(c) for c in node)
 
-    return build(template)
+def _unflatten(node: Any, it) -> Any:
+    # A module function, not a closure that calls itself: such a closure
+    # is a reference cycle that kept ``leaves`` (a tick's decrypted
+    # window) alive until the collector ran.
+    if _is_leaf(node):
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    if hasattr(node, "_fields"):
+        return type(node)(*(_unflatten(c, it) for c in node))
+    return type(node)(_unflatten(c, it) for c in node)
 
 
 def _iter_field_flags(node: Any, wanted: frozenset):

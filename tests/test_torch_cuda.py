@@ -23,7 +23,12 @@ fused kernel.  One seda train step of seamless's smoke config on the
 card gives the CPU's loss and params, its crossings on B1, B7 and B8.
 Each wrapper charges an active cost profile its launch's operand and
 output bytes and its operation count; a seda engine profiled between
-ticks on the card keeps its tokens and pools.
+ticks on the card keeps its tokens and pools.  The engine's CUDA graphs
+of its model steps (one per decode bucket, one per padded prefill
+length) give the eager steps' logits, tokens and cache leaves bit for
+bit, for each attention, MoE, MLA and Mamba smoke config; a 4-tenant
+engine that rotates keys replays them on every tick after the first,
+with the CPU's tokens and the eager card run's pool bytes.
 
 Needs an NVIDIA GPU (marked ``cuda``; skipped without one).  Imports
 only ``repro_torch``, so it runs where JAX is not installed::
@@ -533,11 +538,15 @@ def test_prefix_cache_on_the_card_equals_cpu(card):
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.models.layers import init_params
+    from repro_torch.serve.engine import STAT_NAMES
     cfg = get_arch("minitron-4b").make_smoke_config()
     params = init_params(lm.lm_specs(cfg), 0, device="cpu")
     cpu = _prefix_run("cpu", params)
     gpu = _prefix_run(card, params)
-    assert gpu[:3] == cpu[:3]
+    assert gpu[0] == cpu[0] and gpu[2] == cpu[2]
+    assert {k: gpu[1][k] for k in STAT_NAMES} == \
+        {k: cpu[1][k] for k in STAT_NAMES}
+    assert gpu[1]["decode_graph_replays"] == gpu[1]["decode_steps"] > 0
     stats = gpu[1]
     assert stats["prefix_hit_pages"] > 0 and stats["prefix_cow_pages"] > 0
     assert stats["prefix_inserted_pages"] > 0 and gpu[2] > 0
@@ -953,6 +962,10 @@ def test_profiled_seda_tick_on_the_card_keeps_its_tokens(card):
             assert prof["overhead_bytes_ratio"] > 0.01
             assert prof["coverage"]["bytes"] >= 0.95
         done = eng.run()
+        # The profile's decodes ran eagerly and left the graphs on.
+        assert not eng._graphs_off
+        assert eng.stats["decode_graph_replays"] == \
+            eng.stats["decode_steps"] > 2
         runs.append(([done[r].generated for r in rids], charged,
                      [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
                                         eng.pool.page_vns,
@@ -1045,3 +1058,172 @@ def test_program_spans_on_the_card_wrap_each_launch(card):
                    for e in spans_named)
     names = {e.name for e in prof.events()}
     assert {"crossing.protect", "kernel.otp_xor"} <= names
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the model's serving steps.
+# ---------------------------------------------------------------------------
+
+
+def _graph_engine(name, card, dtype: str = "float32", **kw):
+    """An engine on the card over the smoke config in ``dtype``: 2 slots
+    of 8 pages of 4 tokens, so decode buckets 1, 2, 4, 8 and padded
+    prefill lengths 1 to 32."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch(name)
+    cfg = dataclasses.replace(arch.make_smoke_config(), dtype=dtype)
+    params = init_params(lm.lm_specs(cfg), 0, device="cpu")
+    return SecureServingEngine(arch, cfg, params, scheme="seda",
+                               use_kernel=True, max_slots=2, page_tokens=4,
+                               pages_per_slot=8, device=card, **kw)
+
+
+def _assert_bitwise(want, got) -> None:
+    from repro_torch.models.step_graph import tensors
+    want, got = tensors(want), tensors(got)
+    assert len(want) == len(got)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+GRAPH_CASES = [("minitron-4b", "float32"), ("minitron-4b", "bfloat16"),
+               ("olmoe-1b-7b", "float32"), ("deepseek-v3-671b", "float32"),
+               ("jamba-v0.1-52b", "float32")]
+
+
+@pytest.mark.parametrize("name,dtype", GRAPH_CASES)
+def test_decode_graphs_equal_eager_steps(card, name, dtype):
+    """For every page bucket, the replayed decode graph gives the eager
+    ``lm_decode`` bit for bit: logits, sampled tokens and new cache
+    leaves.  The buckets replay in a mixed order on fresh inputs and
+    fresh on-chip state, so a stale static buffer shows."""
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_pages as kvp
+    from repro_torch.serve.serve_step import greedy_sample
+    eng = _graph_engine(name, card, dtype)
+    gen = torch.Generator(device=card).manual_seed(0)
+    assert eng._step_graph("decode", 1) is not None
+    assert sorted(eng._graphs["decode"]) == [1, 2, 4, 8]
+    assert eng.stats["graph_captures"] == len(eng._graphs["decode"]) + len(
+        eng._graphs["prefill"])
+    s, ptok = eng.max_slots, eng.page_tokens
+    for bucket in (8, 1, 4, 2, 8, 2, 1, 4):
+        for t in eng.onchip:
+            t.copy_(torch.randn(t.shape, generator=gen, device=card))
+        lengths = torch.randint(0, bucket * ptok, (s,), generator=gen,
+                                device=card)
+        tokens = torch.randint(0, eng.cfg.vocab, (s, 1), generator=gen,
+                               device=card)
+        dense = [torch.randn((leaf.steps, s, bucket * ptok) + leaf.rest,
+                             generator=gen, device=card).to(
+                                 kvp._torch_dtype(leaf.dtype))
+                 for leaf in eng.spec.leaves]
+        caches = eng._merge_cache_leaves(dense, lengths)
+        want = lm.lm_decode(eng.cfg, eng.params, tokens, caches)
+        got = lm.lm_decode(eng.cfg, eng.params, tokens, caches,
+                           graph=eng._step_graph("decode", bucket))
+        _assert_bitwise(want, got)
+        assert torch.equal(greedy_sample(want[0]), greedy_sample(got[0]))
+    assert eng.stats["decode_graph_replays"] == 9
+
+
+@pytest.mark.parametrize("name,dtype", GRAPH_CASES[:4])
+def test_prefill_graphs_equal_eager_steps(card, name, dtype):
+    """For every padded prefill length, the replayed prefill graph gives
+    the eager padded prefill (its last position an int) bit for bit:
+    logits and cache leaves; lengths in a mixed order, each with a
+    prompt of its own length."""
+    from repro_torch.models import lm
+    eng = _graph_engine(name, card, dtype)
+    rng = np.random.default_rng(1)
+    assert eng.prefill_buckets and eng._step_graph("prefill", 1) is not None
+    lengths = sorted(eng._graphs["prefill"])
+    assert lengths == [1, 2, 4, 8, 16, 32]
+    for n in lengths[::-1] + lengths:
+        lp = int(rng.integers(n // 2 + 1, n + 1))
+        seq = list(map(int, rng.integers(1, eng.cfg.vocab, lp)))
+        batch = {"tokens": torch.tensor([seq + [0] * (n - lp)],
+                                        dtype=torch.int64, device=card)}
+        want = lm.lm_prefill(eng.cfg, eng.params, batch, eng.max_len,
+                             last_pos=lp - 1)
+        got = lm.lm_prefill(
+            eng.cfg, eng.params, batch, eng.max_len,
+            last_pos=torch.full((1,), lp - 1, dtype=torch.int64,
+                                device=card),
+            graph=eng._step_graph("prefill", n))
+        _assert_bitwise(want, got)
+    assert eng.stats["prefill_graph_replays"] == 1 + 2 * len(lengths)
+
+
+def _tenant_graph_run(device, params, graphs: bool = True) -> dict:
+    """4 tenants on the smoke config, a rotation every 3 ticks, every
+    tick verified: the graph counters after each tick, the tokens, the
+    pool and the Merkle root."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import kv_pages as kvp
+    from repro_torch.serve.engine import SecureServingEngine
+    arch = get_arch("minitron-4b")
+    reg = TenantRegistry(KeyHierarchy(9, device=device), max_tenants=4)
+    for t in range(4):
+        reg.register(f"t{t}")
+    sessions = [reg.open_session(f"t{t}") for t in range(4)]
+    eng = SecureServingEngine(arch, arch.make_smoke_config(), params,
+                              scheme="seda", use_kernel=True, registry=reg,
+                              rotate_every=3, max_slots=4, page_tokens=4,
+                              pages_per_slot=8, n_pages=32,
+                              verify_every_step=True, device=device)
+    if not graphs:
+        eng._step_graph = lambda kind, key: None
+    rng = np.random.default_rng(12)
+    rids = [eng.submit(prompt=list(map(int, rng.integers(1, 256, n))),
+                       max_new_tokens=m, session=sessions[i % 4])
+            for i, (n, m) in enumerate(zip((3, 9, 14, 6, 11, 5, 17, 2),
+                                           (20, 22, 17, 24, 20, 25, 14, 28)))]
+    ticks = []
+    while not all(eng.requests[r].state == "finished" for r in rids):
+        eng.step()
+        ticks.append({k: eng.stats[k] for k in (
+            "decode_steps", "decode_graph_replays", "prefill_graph_replays",
+            "graph_captures", "admitted")})
+        assert eng.tick < 100
+    pool = [t.cpu() for t in (*eng.pool.cts, eng.pool.page_macs,
+                              eng.pool.page_vns, eng.pool.pool_mac)]
+    merkle_ok = eng.merkle.verify_against(
+        kvp.merkle_leaf_macs(eng.pool, eng.spec))
+    return {"tokens": [eng.requests[r].generated for r in rids],
+            "ticks": ticks, "pool": pool, "root": eng.merkle.root(),
+            "ok": bool(eng.deferred_check()) and merkle_ok,
+            "rotations": eng.stats["rotations"]}
+
+
+def test_tenant_engine_replays_graphs_every_tick(card):
+    """A 4-tenant engine with rotations replays its decode graph on
+    every tick after the first and captures nothing after it; its tokens
+    are the CPU's, and its page ciphertexts, MACs, VNs, pool MAC and
+    Merkle root the eager card run's (floats summed on another device
+    give other K/V bytes, so the CPU's pool is compared by its VNs)."""
+    params = _smoke_params()
+    cpu = _tenant_graph_run("cpu", params)
+    eager = _tenant_graph_run(card, params, graphs=False)
+    got = _tenant_graph_run(card, params)
+    assert got["tokens"] == eager["tokens"] == cpu["tokens"]
+    assert len(got["ticks"]) >= 40 and got["rotations"] >= 13
+    first, last = got["ticks"][0], got["ticks"][-1]
+    assert first["graph_captures"] == 4 + 6 > 0
+    for t in got["ticks"]:
+        assert t["decode_graph_replays"] == t["decode_steps"]
+        assert t["prefill_graph_replays"] == t["admitted"]
+        assert t["graph_captures"] == first["graph_captures"]
+    assert last["decode_steps"] == len(got["ticks"])
+    assert all(t["graph_captures"] == t["decode_graph_replays"] == 0
+               for t in eager["ticks"] + cpu["ticks"])
+    assert all(torch.equal(a, b) for a, b in zip(got["pool"], eager["pool"]))
+    assert got["root"] == eager["root"]
+    assert torch.equal(got["pool"][-2], cpu["pool"][-2])      # page VNs
+    assert got["ok"] and eager["ok"] and cpu["ok"]

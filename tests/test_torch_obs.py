@@ -275,6 +275,23 @@ class TestTrace:
         assert b["args"] == {"k": 1, "late": 2}
         assert len({a["id"], b["id"], c["id"]}) == 3
 
+    def test_events_survive_a_collection_while_read(self):
+        """A collector pass while ``events()`` reads the ring records its
+        ``gc`` span into that ring; the read still gives what was there."""
+        tr = SpanTracer()
+        for i in range(200):
+            tr.add(f"s{i}", 0, 1000, {"k": i})
+        threshold = gc.get_threshold()
+        trace_mod.enable(tr)
+        gc.set_threshold(1)
+        try:
+            events = tr.events()
+        finally:
+            gc.set_threshold(*threshold)
+            trace_mod.disable()
+        assert [e["name"] for e in events] == [f"s{i}" for i in range(200)]
+        assert any(e["name"] == "gc" for e in tr.events())
+
     def test_spans_off_make_no_clock_or_profiler_call(self, monkeypatch):
         calls = []
         real = time.perf_counter_ns
@@ -525,6 +542,22 @@ def span_runs(smoke, prompts):
             trace_mod.disable()
         runs[on] = (eng, rids)
     return runs
+
+
+def test_graph_counters_declared_and_zero_on_the_cpu(span_runs):
+    """The port's counters of its CUDA graphs are declared beside the
+    reference's set, not in it, and stay 0 on CPU engines: their model
+    steps run eagerly and capture nothing."""
+    assert set(metrics_mod.GRAPH_COUNTERS) == {
+        "decode_graph_replays", "prefill_graph_replays", "graph_captures"}
+    assert all(metrics_mod.GRAPH_COUNTERS.values())
+    assert not set(metrics_mod.GRAPH_COUNTERS) & set(STAT_NAMES)
+    for eng, _ in span_runs.values():
+        assert eng.stats["decode_steps"] > 0 and eng.stats["admitted"] > 0
+        for name, help_ in metrics_mod.GRAPH_COUNTERS.items():
+            assert eng.stats[name] == 0, name
+            assert eng.metrics.counters[name].help == help_
+        assert eng._graphs is None
 
 
 def _chain(events, e) -> list:

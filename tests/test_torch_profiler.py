@@ -365,6 +365,20 @@ def test_profile_between_ticks_changes_nothing(smoke, arch_name):
     assert _stats(eng) == _stats(twin)
 
 
+def test_detached_decode_puts_back_the_graph_switch(smoke):
+    """A profile's detached decode turns the engine's CUDA graphs off
+    while it runs and puts back the switch it found: a nested detach
+    leaves its caller's decodes eager."""
+    eng, _ = _single_engine(smoke)()
+    assert not eng._graphs_off
+    with eng._detached_decode():
+        assert eng._graphs_off
+        with eng._detached_decode():
+            assert eng._graphs_off
+        assert eng._graphs_off
+    assert not eng._graphs_off
+
+
 def test_cluster_profile_between_ticks_changes_nothing(smoke):
     def make():
         cl = ClusterEngine(*smoke, shards=2, max_slots=1, page_tokens=4,

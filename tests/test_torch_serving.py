@@ -171,6 +171,25 @@ def test_page_bytes_round_trip(smoke):
     assert torch.equal(kvp._bytes_to_tokens(spec, leaf, buf), toks)
 
 
+def test_cache_unflatten_keeps_no_reference_cycle():
+    """A rebuilt cache tree holds its leaves and nothing else does: with
+    the collector off, a leaf is freed once the caller drops it and the
+    tree (the engine rebuilds one over each tick's decrypted window)."""
+    import gc
+    import weakref
+    t0 = torch.zeros(2)
+    gc.disable()
+    try:
+        t, u = torch.ones(2), torch.ones(3)
+        alive = weakref.ref(t)
+        tree = kvp.cache_unflatten({"a": (t0, t0)}, [t, u])
+        assert tree["a"][0] is t and tree["a"][1] is u
+        del tree, t
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 def test_page_table_and_buckets_match():
     for n, cap in [(1, 8), (3, 8), (5, 4), (9, 16)]:
         assert kvp.page_count_bucket(n, cap) == j_kvp.page_count_bucket(n, cap)

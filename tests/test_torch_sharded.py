@@ -403,6 +403,18 @@ def test_two_shards_equal_reference(two_shards):
     assert t["ok"] and j["ok"]
 
 
+def test_cluster_rolls_up_the_graph_counters(two_shards):
+    """The engines' CUDA-graph counters (the port's own) reach the
+    cluster's rollup as every engine counter does: 0 on CPU shards, whose
+    model steps run eagerly."""
+    from repro_torch.obs.metrics import GRAPH_COUNTERS
+    snap = two_shards[0]["torch"]["snap"]
+    for name in GRAPH_COUNTERS:
+        assert [s[name] for s in snap["shards"]] == [0, 0], name
+        assert snap["engine_stats"][name] == 0, name
+    assert snap["engine_stats"]["decode_steps"] > 0
+
+
 def test_migration_under_load_zero_recompute(two_shards):
     snap = two_shards[0]["torch"]["snap"]
     assert snap["stats"]["migrations"] > 0
