@@ -53,13 +53,13 @@ def train_seed(cell, seed, seconds, device, controls: bool) -> dict:
            "peak_bytes": out["device"]["memory_peak_bytes"],
            "end_to_end": out["end_to_end"]}
     if controls:
-        c, wl = cell.config, cell.workload
+        wl = cell.workload
         n = wl["checked_steps"]
-        ref = train.reference_readings(c, wl, seed, device, n)
+        ref = train.reference_readings(cell, seed, device, n)
         for name, kw in (("control_fp8", {"precision": "fp8"}),
                          ("fault_half_batch",
                           {"rows_used": wl["batch"] // 2})):
-            other = train.reference_readings(c, wl, seed, device, n, **kw)
+            other = train.reference_readings(cell, seed, device, n, **kw)
             row[name] = train.readings_of(other["losses"],
                                           other["grad_norms"],
                                           other["change_norms"], ref)

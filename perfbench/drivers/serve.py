@@ -23,7 +23,6 @@ lies below the reference's best must stay under the cell's limit.
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import importlib
 import math
@@ -54,20 +53,6 @@ TARGETS = [
     ("engine", "repro_torch.serve.engine:SecureServingEngine._tick_end"),
 ]
 SPANS = ("tick_begin", "decode_dispatch", "decode_collect", "tick_end")
-
-
-def program_config(c: dict):
-    """``(arch, LMConfig)`` of the port with the file's sizes."""
-    from repro_torch.configs import get_arch
-    arch = get_arch(c["port_arch"])
-    cfg = dataclasses.replace(
-        arch.make_config(), n_layers=c["num_hidden_layers"],
-        d_model=c["hidden_size"], n_heads=c["num_attention_heads"],
-        n_kv=c["num_key_value_heads"], head_dim=c["head_dim"],
-        d_ff=c["intermediate_size"], vocab=c["vocab_size"],
-        dtype=c["torch_dtype"], tie_embeddings=c["tie_word_embeddings"],
-        gated_ffn=c["hidden_act"] == "silu")
-    return arch, cfg
 
 
 class Traffic:
@@ -198,19 +183,29 @@ def _end_to_end(tr: Traffic, t0: float, t1: float) -> tuple:
     return out, len(counted), failed, extra
 
 
-def _model_flops(c: dict, tr: Traffic, t0: float, t1: float) -> float:
-    """The window's model FLOPs: each prefill whose first token landed
-    in the window (its prompt, pads excluded), each decoded token at its
-    context."""
+def _model_flops(cell, tr: Traffic, t0: float, t1: float) -> float:
+    """The window's model FLOPs, by the cell's family: each prefill
+    whose first token landed in the window (its prompt, pads excluded),
+    each decoded token at its context."""
+    c, fam = cell.config, cell.family
     total = 0.0
     for r in tr.recs.values():
         lp = len(r["prompt"])
         for k, t in enumerate(r["times"]):
             if not t0 < t <= t1:
                 continue
-            total += (costs.lm_prefill_flops(c, lp) if k == 0
-                      else costs.lm_decode_flops(c, lp + k))
+            total += (fam.prefill_flops(c, lp) if k == 0
+                      else fam.decode_flops(c, lp + k))
     return total
+
+
+def _page_work(cell, pages_read: int, pages_written: int) -> tuple:
+    """``(bytes, ops)`` the crossings of these pages require, a page's
+    bytes by the cell's family."""
+    c, d = cell.config, cell.config["deployment"]
+    page = cell.family.page_bytes(c, d["page_tokens"], d["block_bytes"])
+    return costs.page_crossing_work(page, d["block_bytes"], pages_read,
+                                    pages_written)
 
 
 def sample_requests(tr: Traffic, t0: float, t1: float, k: int,
@@ -263,7 +258,7 @@ def build(cell, seed: int, device, trace: bool):
     traffic, weights, ranges)``."""
     from repro_torch.core.secure_memory import SecureKeys
     from repro_torch.serve.engine import SecureServingEngine
-    c, wl = cell.config, cell.workload
+    c, wl, fam = cell.config, cell.workload, cell.family
     d = c["deployment"]
     if device.type == "cuda":
         from repro_torch.kernels import build as kbuild
@@ -271,8 +266,8 @@ def build(cell, seed: int, device, trace: bool):
     work = {"read": 0, "written": 0}
     ranges = (tracing.Ranges(TARGETS, on_call=_work_hooks(work)) if trace
               else None)
-    w = weights.make(weights.lm_shapes(c), seed, device)
-    arch, pcfg = program_config(c)
+    w = weights.make(fam.shapes(c), seed, device)
+    arch, pcfg = fam.program_config(c)
     registry = sessions = None
     if wl.get("tenant_shares"):
         from repro_torch.tenancy import KeyHierarchy, TenantRegistry
@@ -284,7 +279,7 @@ def build(cell, seed: int, device, trace: bool):
             registry.register(f"tenant-{t}")
         sessions = [registry.open_session(f"tenant-{t}") for t in range(n)]
     eng = SecureServingEngine(
-        arch, pcfg, weights.lm_program_tree(w), scheme=d["scheme"],
+        arch, pcfg, fam.program_tree(w), scheme=d["scheme"],
         use_kernel=d["use_kernel"], max_slots=wl["max_slots"],
         page_tokens=d["page_tokens"], pages_per_slot=wl["pages_per_slot"],
         n_pages=wl["n_pages"],
@@ -407,7 +402,6 @@ def run(cell, *, seed, seconds, trace, device, t_process, log,
 
 def _trace(cell, eng, tr: Traffic, ranges, t0: float, t1: float) -> Readings:
     """The traced segments after the window, and the readings."""
-    c, wl = cell.config, cell.workload
     spans: dict = {}
     # The engine counts its ticks with Traffic's, one each.
     window_ticks = {i + 1 for i, t in enumerate(tr.ticks) if t0 < t <= t1}
@@ -415,16 +409,15 @@ def _trace(cell, eng, tr: Traffic, ranges, t0: float, t1: float) -> Readings:
         if e["name"] in SPANS and e.get("args", {}).get("tick") in \
                 window_ticks:
             spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
-    t = wl["trace"]
+    t = cell.workload["trace"]
     device = tracing.profile(tr.run_ticks, t["device_ticks"], host=False)
     tr.work.update(read=0, written=0)
     layers = tracing.profile(tr.run_ticks, t["layer_ticks"], host=True,
                              layers=set(ranges.layers), ranges=ranges)
-    work = {"pageio": costs.page_crossing_work(
-        c, c["deployment"], tr.work["read"], tr.work["written"])}
+    work = {"pageio": _page_work(cell, tr.work["read"], tr.work["written"])}
     return Readings(window_s=t1 - t0,
                     units=len(window_ticks), spans=spans,
                     device=device, layers=layers, ranges=ranges,
                     targets=TARGETS, work=work,
-                    model_flops=_model_flops(c, tr, t0, t1))
+                    model_flops=_model_flops(cell, tr, t0, t1))
 

@@ -10,21 +10,23 @@ steps it completed.  With ``--trace 1`` two profiled segments follow:
 the card alone, then the card and the host with the layers' ranges.
 
 ``correct``: once the window has closed and the peak memory is read,
-the program's state is freed and the plain float32 reference
-(``perfbench/reference/encdec.py``) runs the same checked steps from the
-same weights on the same batches.  Compared, each against its limit:
-each step's loss; the norm of each leaf's first gradient as the
-optimizer took it (worked out from the first moment after one step); the
-norm of each leaf's change over the checked steps, as the protected
-weights hold it after the round trip through unprotect.  A norm's gap
-is taken by the worst leaf, against the reference's norm of that leaf
-or of the median leaf, whichever is larger.
+the program's state is freed and the plain float32 reference that the
+configuration names (``perfbench/reference/<reference>.py``; the
+weights' layout and the FLOPs are its ``family``'s) runs the same
+checked steps from the same weights on the same batches.  Compared,
+each against its limit: each step's loss; the norm of each leaf's first
+gradient as the optimizer took it (worked out from the first moment
+after one step); the norm of each leaf's change over the checked steps,
+as the protected weights hold it after the round trip through
+unprotect.  A norm's gap is taken by the worst leaf, against the
+reference's norm of that leaf or of the median leaf, whichever is
+larger.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
+import importlib
 import math
 import statistics
 import time
@@ -41,19 +43,6 @@ TARGETS = [
     ("crossing", "repro_torch.core.secure_exec:SecureExecutor.protect"),
     ("crossing", "repro_torch.core.secure_exec:SecureExecutor.unprotect"),
 ]
-
-
-def program_config(c: dict):
-    from repro_torch.configs import get_arch
-    arch = get_arch(c["port_arch"])
-    cfg = dataclasses.replace(
-        arch.make_config(), enc_layers=c["encoder_layers"],
-        dec_layers=c["decoder_layers"], d_model=c["hidden_size"],
-        n_heads=c["encoder_attention_heads"],
-        n_kv=c["encoder_attention_heads"], head_dim=c["head_dim"],
-        d_ff=c["encoder_ffn_dim"], vocab=c["vocab_size"],
-        dtype=c["torch_dtype"], remat=c["remat"])
-    return arch, cfg
 
 
 def worst_leaf_gap(prog: dict, ref: dict, keep=None) -> tuple:
@@ -87,11 +76,11 @@ class Program:
         from repro_torch.train.train_step import make_secure_train_step
         c, d = cell.config, cell.config["deployment"]
         self.c, self.wl, self.seed, self.device = c, cell.workload, seed, device
-        arch, pcfg = program_config(c)
+        self.family = fam = cell.family
+        arch, pcfg = fam.program_config(c)
         o = {k: v for k, v in c["optimizer"].items() if k != "kind"}
         self.opt_cfg = AdamWConfig(**o)
-        params = weights.encdec_program_tree(
-            weights.make(weights.encdec_shapes(c), seed, device))
+        params = fam.program_tree(weights.make(fam.shapes(c), seed, device))
         self.opt = init_opt_state(params, self.opt_cfg)
         self.executor = SecureExecutor(
             scheme=d["scheme"], keys=SecureKeys.derive(seed % (1 << 32),
@@ -120,7 +109,7 @@ class Program:
 
     def first_grad_norms(self) -> dict:
         """Each leaf's clipped first gradient, from the first moment."""
-        mu = weights.encdec_from_program_tree(self.opt.mu)
+        mu = self.family.from_program_tree(self.opt.mu)
         return {k: float(v.float().norm()) / (1 - self.opt_cfg.b1)
                 for k, v in mu.items()}
 
@@ -130,8 +119,8 @@ class Program:
         params, ok = self.executor.unprotect(self.state, self.region)
         if not bool(ok):
             raise RuntimeError("the protected weights failed their check")
-        now = weights.encdec_from_program_tree(params)
-        start = weights.make(weights.encdec_shapes(self.c), self.seed,
+        now = self.family.from_program_tree(params)
+        start = weights.make(self.family.shapes(self.c), self.seed,
                              self.device)
         out = {k: float((now[k].float() - start[k].float()).norm())
                for k in start}
@@ -139,7 +128,7 @@ class Program:
 
 
 def run(cell, *, seed, seconds, trace, device, t_process, log) -> dict:
-    c, wl = cell.config, cell.workload
+    wl = cell.workload
     if device.type == "cuda":
         from repro_torch.kernels import build as kbuild
         kbuild.build()
@@ -195,7 +184,7 @@ def run(cell, *, seed, seconds, trace, device, t_process, log) -> dict:
         torch.cuda.empty_cache()
     checks = [check("failed_steps", failed, 0, failed == 0)]
     if err is None:
-        ref = reference_readings(c, wl, seed, device, n_check)
+        ref = reference_readings(cell, seed, device, n_check)
         checks += compare(wl["correct"], losses, grads, change, ref)
     return {"correct": all(ch["ok"] for ch in checks) and err is None,
             "attempted": attempted, "failed": failed, "end_to_end": e2e,
@@ -207,16 +196,17 @@ def run(cell, *, seed, seconds, trace, device, t_process, log) -> dict:
                           "chunk_steps_s": chunk_rates(ends, t0, t1)})}}
 
 
-def reference_readings(c, wl, seed, device, n_steps, precision="float32",
+def reference_readings(cell, seed, device, n_steps, precision="float32",
                        rows_used=None) -> dict:
     """The reference's checked steps from the seed's weights and
     batches."""
-    from perfbench.reference import encdec
-    stored = weights.make(weights.encdec_shapes(c), seed, device)
+    c, wl = cell.config, cell.workload
+    ref = importlib.import_module(f"perfbench.reference.{c['reference']}")
+    stored = weights.make(cell.family.shapes(c), seed, device)
     batches = [traffic.train_batch(wl, c, seed, i, device)
                for i in range(n_steps)]
-    return encdec.train_steps(c, stored, batches, precision,
-                              rows=wl["reference_rows"], rows_used=rows_used)
+    return ref.train_steps(c, stored, batches, precision,
+                           rows=wl["reference_rows"], rows_used=rows_used)
 
 
 def readings_of(losses, grads, change, ref) -> dict:
@@ -246,7 +236,7 @@ def _trace(prog: Program, ranges, window_s: float, n_window: int) -> Readings:
                              layers=set(ranges.layers), ranges=ranges)
     c, wl, d = prog.c, prog.wl, prog.c["deployment"]
     sizes = [(math.prod(shape), 4 if dtype == "float32" else 2)
-             for shape, _, dtype in weights.encdec_shapes(c).values()]
+             for shape, _, dtype in prog.family.shapes(c).values()]
     units = t["layer_steps"]
     moment = 4 if c["optimizer"]["state_dtype"] == "float32" else 2
     work = {
@@ -255,7 +245,7 @@ def _trace(prog: Program, ranges, window_s: float, n_window: int) -> Readings:
         "crossing": tuple(units * x for x in costs.weights_crossing_work(
             sum(n * b for n, b in sizes), d["block_bytes"])),
     }
-    flops = n_window * costs.encdec_train_flops(
+    flops = n_window * prog.family.train_flops(
         c, wl["batch"], wl["src_frames"], wl["tgt_tokens"])
     return Readings(window_s=window_s, units=n_window,
                     device=device, layers=layers, ranges=ranges,

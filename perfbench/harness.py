@@ -1,19 +1,34 @@
 """The benchmark's core: find a cell by name, run it, print its line.
 
-Everything that belongs to one configuration, one traffic mix or one
-per-layer metric sits in a file of its own, found by the name that
-``BENCHMARK.json`` gives:
+Everything that belongs to one configuration, one traffic mix, one
+architecture or one per-layer metric sits in a file of its own, found by
+the name that ``BENCHMARK.json`` or the configuration gives:
 
 * ``configs[].file``: the configuration's sizes and its deployment, with
   the plain reference it is checked against (``reference`` names a
-  module of ``perfbench/reference/``);
+  module of ``perfbench/reference/``) and its ``family``;
+* ``perfbench/families/<family>.py``, loaded by path under the cell's
+  root as :attr:`Cell.family`: everything the drivers know of one
+  architecture.  For serving: ``shapes(c)`` (``{name: (shape, fan_in |
+  None | "embed", dtype)}`` in draw order), ``program_config(c)``
+  (``(arch, cfg)`` of the port), ``program_tree(w)``,
+  ``prefill_flops(c, n)``, ``decode_flops(c, context)`` and
+  ``page_bytes(c, page_tokens, block_bytes)`` (the ciphertext of one
+  page over the layers that keep pages); for training ``shapes``,
+  ``program_config``, ``program_tree``, ``from_program_tree`` and
+  ``train_flops(c, batch, src, tgt)``;
 * ``perfbench/workloads/<cell>.json``: the traffic mix and the cell's
   limits; its ``kind`` picks the driver (``perfbench/drivers/``);
 * ``perfbench/metrics/<metric>.py``: a ``read(r)`` that takes the metric
   from the run's readings (:class:`perfbench.readings.Readings`) and
-  returns a number, or None when there is nothing to read.
+  returns a number, or None when there is nothing to read;
+* an end-to-end metric is a reading of the cell's driver by its name;
+  ``<quantity>.<suffix>`` reads ``<quantity>`` (``decode_tok_s.long``:
+  ``decode_tok_s`` of the cells it lists, under a bound of their own).
 
-A cell is added with data files alone; a metric with its reader.
+A cell of a model the port runs is added with new files alone: a
+configuration, its family (where no family fits yet), its reference
+(where none fits yet), a workload and its metrics' readers.
 """
 
 from __future__ import annotations
@@ -50,6 +65,8 @@ class Cell:
             config_file or root / self.config_entry["file"]).read_text())
         wdir = workloads_dir or PERFBENCH / "workloads"
         self.workload = json.loads((wdir / f"{name}.json").read_text())
+        self.family = load_family(self.config["family"],
+                                  root / "perfbench" / "families")
         self.chips = self.entry["chips"]
         self.end_to_end = [m for m in bench["end_to_end"]
                            if name in m.get("workloads", [name])]
@@ -61,14 +78,33 @@ def load_bench(root: Path = PERFBENCH.parent) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def metric_reader(name: str, metrics_dir: Path | None = None):
-    """The ``read`` of ``perfbench/metrics/<name>.py``."""
-    path = (metrics_dir or PERFBENCH / "metrics") / f"{name}.py"
+def _load(path: Path, kind: str):
+    """The module in the file ``path``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
-        f"perfbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"perfbench_{kind}_{path.stem.replace('.', '_').replace('-', '_')}",
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, metrics_dir: Path | None = None):
+    """The ``read`` of ``perfbench/metrics/<name>.py``."""
+    return _load((metrics_dir or PERFBENCH / "metrics") / f"{name}.py",
+                 "metric").read
+
+
+def load_family(name: str, families_dir: Path | None = None):
+    """The module ``perfbench/families/<name>.py``."""
+    return _load((families_dir or PERFBENCH / "families") / f"{name}.py",
+                 "family")
+
+
+def end_to_end_key(name: str, values: dict) -> str:
+    """The driver's reading that the end-to-end metric ``name`` takes:
+    its own name, or for ``<quantity>.<suffix>`` (one quantity of some
+    cells under a bound of their own) the part before the first dot."""
+    return name if name in values else name.split(".")[0]
 
 
 def forbidden_modules() -> list:
@@ -113,14 +149,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                 continue
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
+        read = set()
         for m in cell.end_to_end:
-            value = out["end_to_end"].get(m["name"])
+            key = end_to_end_key(m["name"], out["end_to_end"])
+            value = out["end_to_end"].get(key)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+                read.add(key)
         # The window's other readings (a tail that spreads too widely to
         # judge) are printed for the record, not judged.
         unjudged = {k: v for k, v in out["end_to_end"].items()
-                    if k not in metrics}
+                    if k not in read}
     checks = out["checks"]
     result = {
         "correct": bool(out["correct"]),

@@ -14,6 +14,8 @@ from perfbench import costs, harness, stats, tracing
 from perfbench.readings import Readings
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+DENSE = harness.load_family("dense_lm")
+ENCDEC = harness.load_family("encdec")
 
 
 @pytest.mark.parametrize("q", [50, 90, 95, 99])
@@ -118,13 +120,14 @@ def test_minitron_counts_by_hand():
     c = json.loads((CONFIGS / "minitron-4b.json").read_text())
     d, kv, hd, f, v = 3072, 8, 128, 9216, 256000
     per_layer = d * d + 2 * d * kv * hd + d * d + 3 * d * f
-    assert costs.lm_matmul_params(c) == 32 * per_layer + d * v
-    assert costs.lm_matmul_params(c) == 4_309_647_360
-    assert costs.lm_decode_flops(c, 1000) == 2 * 4_309_647_360 \
+    assert DENSE.matmul_params(c) == 32 * per_layer + d * v
+    assert DENSE.matmul_params(c) == 4_309_647_360
+    assert DENSE.decode_flops(c, 1000) == 2 * 4_309_647_360 \
         + 4 * 24 * 128 * 1000 * 32
     # A page: 8 tokens x 8 heads x 128 x 2 bytes, k and v, 32 layers.
-    assert costs.kv_page_bytes(c, 8, 64) == 1 << 20
-    nbytes, ops = costs.page_crossing_work(c, c["deployment"], 8 * 212, 8)
+    assert DENSE.page_bytes(c, 8, 64) == 1 << 20
+    nbytes, ops = costs.page_crossing_work(DENSE.page_bytes(c, 8, 64), 64,
+                                           8 * 212, 8)
     assert nbytes == (8 * 212 + 8) * ((1 << 20) + 8)
     assert ops == (8 * 212 + 8) * (1 << 20) / 64 * (2 * 1056 + 4 * 16 + 16)
     t, kind = costs.bound_s(nbytes, ops)
@@ -136,20 +139,20 @@ def test_smoke_counts_by_hand():
          "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 192,
          "num_hidden_layers": 2, "vocab_size": 256}
     per_layer = 96 * 96 + 2 * 96 * 32 + 96 * 96 + 3 * 96 * 192
-    assert costs.lm_matmul_params(c) == 2 * per_layer + 96 * 256
+    assert DENSE.matmul_params(c) == 2 * per_layer + 96 * 256
     # Prefill of 3 tokens: contexts 1, 2, 3.
-    assert costs.lm_prefill_flops(c, 3) == pytest.approx(
-        3 * 2 * costs.lm_matmul_params(c) + 4 * 96 * 2 * (1 + 2 + 3))
-    assert costs.kv_page_bytes(c, 4, 64) == 2 * 2 * 256   # 4 x 2 x 16 x 2
+    assert DENSE.prefill_flops(c, 3) == pytest.approx(
+        3 * 2 * DENSE.matmul_params(c) + 4 * 96 * 2 * (1 + 2 + 3))
+    assert DENSE.page_bytes(c, 4, 64) == 2 * 2 * 256   # 4 x 2 x 16 x 2
 
 
 def test_seamless_counts_by_hand():
     c = json.loads((CONFIGS / "seamless-m4t-large-v2.json").read_text())
-    enc, dec = costs.encdec_layer_params(c)
+    enc, dec = ENCDEC.layer_params(c)
     assert enc == 4 * 1024 * 1024 + 3 * 1024 * 8192
     assert dec == 8 * 1024 * 1024 + 3 * 1024 * 8192
     b, s, t = 16, 512, 256
-    flops = costs.encdec_train_flops(c, b, s, t)
+    flops = ENCDEC.train_flops(c, b, s, t)
     matmul = b * (s * 24 * enc + t * (24 * dec + 1024 * 256102))
     attn = b * (24 * 4 * 1024 * s * s + 24 * 4 * 1024 * t * (t + 1) / 2
                 + 24 * 4 * 1024 * t * s)

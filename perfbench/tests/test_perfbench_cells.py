@@ -7,6 +7,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -31,6 +32,25 @@ def test_sound_run_is_correct(name):
         # The token gaps' tail is printed for the record, not judged.
         assert "itl_p95_ms" in out["unjudged"]
         assert "itl_p95_ms" not in out["metrics"]
+
+
+def test_a_quantity_under_a_bound_of_its_own():
+    """``decode_tok_s.long`` reads the driver's ``decode_tok_s``: judged
+    under its own name, and not printed again among the unjudged."""
+    assert harness.end_to_end_key("decode_tok_s.long",
+                                  {"decode_tok_s": 1.0}) == "decode_tok_s"
+    assert harness.end_to_end_key("setup_s", {"setup_s": 1.0}) == "setup_s"
+    bench = harness.load_bench(ROOT)
+    cell = smoke.cell("smoke.batch")
+    cell.end_to_end = [m for m in bench["end_to_end"]
+                       if m["name"] in ("decode_tok_s.long", "setup_s")]
+    out = harness.run_cell(cell, 2_200_000_041, 3.0, False,
+                           torch.device("cpu"), time.perf_counter(),
+                           log=lambda m: None)
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"decode_tok_s.long", "setup_s"}
+    assert out["metrics"]["decode_tok_s.long"]["value"] > 0
+    assert "decode_tok_s" not in out["unjudged"]
 
 
 def test_traced_run_reads_no_device_metric_on_the_cpu():
@@ -110,18 +130,13 @@ def test_serving_control_is_not_correct(monkeypatch):
     assert not smoke.run("smoke.batch")["correct"]
 
 
-def test_training_control_is_not_correct(monkeypatch):
+def test_training_control_is_not_correct():
     """The reference in float8 put in the program's place."""
     from perfbench.drivers import train
-    real = train.reference_readings
-
-    def readings(c, wl, seed, device, n, precision="float32", **kw):
-        return real(c, wl, seed, device, n, precision, **kw)
-
     cell = smoke.cell("smoke.train")
-    c, wl = cell.config, cell.workload
-    ref = readings(c, wl, 5, torch.device("cpu"), 3)
-    ctl = readings(c, wl, 5, torch.device("cpu"), 3, "fp8")
+    wl = cell.workload
+    ref = train.reference_readings(cell, 5, torch.device("cpu"), 3)
+    ctl = train.reference_readings(cell, 5, torch.device("cpu"), 3, "fp8")
     checks = train.compare(wl["correct"], ctl["losses"], ctl["grad_norms"],
                            ctl["change_norms"], ref)
     assert not all(ch["ok"] for ch in checks)
@@ -129,7 +144,8 @@ def test_training_control_is_not_correct(monkeypatch):
 
 def test_a_cell_and_a_metric_from_new_files_alone(tmp_path):
     """Copy the benchmark, add a workload file, a metric file and their
-    entries, and the harness finds them by name; no existing file of the
+    entries, and a configuration of another architecture with its family
+    file, and the harness finds them by name; no existing file of the
     copy changes."""
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "perfbench", root / "perfbench",
@@ -156,7 +172,25 @@ def test_a_cell_and_a_metric_from_new_files_alone(tmp_path):
         "name": "engine.collect_ms_per_tick.batch", "unit": "ms",
         "better": "lower", "source": "program_span", "layer": "engine",
         "moves": "decode_tok_s", "workloads": ["minitron-4b.mid-batch"]})
+    data = ROOT / "perfbench/tests/data"
+    shutil.copy(data / "olmoe-1b-7b-smoke.json",
+                root / "perfbench/configs/olmoe-1b-7b.json")
+    shutil.copy(data / "moe_lm.py", root / "perfbench/families/moe_lm.py")
+    (root / "perfbench/workloads/olmoe-1b-7b.mid-batch.json").write_text(
+        json.dumps(wl))
+    bench["configs"].append({"name": "olmoe-1b-7b", "source": "smoke",
+                             "file": "perfbench/configs/olmoe-1b-7b.json",
+                             "reduced": [], "why": "a new architecture"})
+    bench["workloads"].append({"name": "olmoe-1b-7b.mid-batch",
+                               "config": "olmoe-1b-7b",
+                               "traffic": "mid-batch", "chips": 1,
+                               "why": "a new cell"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    moe = harness.Cell(bench, "olmoe-1b-7b.mid-batch", root,
+                       workloads_dir=root / "perfbench/workloads")
+    assert moe.family.__file__ == str(root / "perfbench/families/moe_lm.py")
+    assert "router" in moe.family.shapes(moe.config)
+    assert moe.family.page_bytes(moe.config, 8, 64) > 0
     cell = harness.Cell(bench, "minitron-4b.mid-batch", root,
                         workloads_dir=root / "perfbench/workloads")
     assert cell.workload["prompt_tokens"]["min"] == 256

@@ -45,10 +45,40 @@ def test_requests_deterministic_and_in_range(cell):
 
 
 def test_uniform_strata_cover_the_range():
-    wl = load("minitron-4b.long-batch")
+    wl = {"prompt_tokens": {"min": 768, "max": 1536, "dist": "uniform"},
+          "output_tokens": {"min": 96, "max": 160, "dist": "uniform"},
+          "strata": 16}
     sizes = sorted(len(p) for p, _, _ in draw(wl, 3, wl["strata"]))
     assert sizes[0] == 792 and sizes[-1] == 1512      # stratum midpoints
     assert len(set(sizes)) == wl["strata"]
+
+
+def test_long_batch_keeps_its_sources_medians():
+    """Log-uniform strata: the two middle midpoints' geometric mean is
+    the source's median (1020 prompt tokens, 129 answer tokens), and no
+    context passes the slot's pages (4096 tokens)."""
+    wl = load("minitron-4b.long-batch")
+    reqs = draw(wl, 2_147_483_923, wl["strata"])
+    for sizes, median in ((sorted(len(p) for p, _, _ in reqs), 1020),
+                          (sorted(m for _, m, _ in reqs), 129)):
+        mid = len(sizes) // 2
+        assert abs((sizes[mid - 1] * sizes[mid]) ** 0.5 - median) < 3
+    assert wl["prompt_tokens"]["max"] + wl["output_tokens"]["max"] \
+        <= wl["pages_per_slot"] * 8
+
+
+def test_spread_order_keeps_every_stretch_alike():
+    """``"order": "spread"``: any ``strata`` requests in a row hold each
+    midpoint once, and the long prompts (past 2048 tokens) come every
+    ``strata / 2`` requests, whatever the seed."""
+    wl = load("minitron-4b.long-batch")
+    s = wl["strata"]
+    for seed in (2_147_483_929, 11, 12):
+        sizes = [len(p) for p, _, _ in draw(wl, seed, 4 * s)]
+        assert all(sorted(sizes[i:i + s]) == sorted(sizes[:s])
+                   for i in range(3 * s))
+        long = [i for i, x in enumerate(sizes) if x > 2048]
+        assert {b - a for a, b in zip(long, long[1:])} == {s // 2}
 
 
 def test_log_uniform_prompts_and_tenant_shares():

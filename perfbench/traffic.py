@@ -5,8 +5,12 @@ Every seed gets the same work in another order.  Lengths and
 inter-arrival gaps are drawn by strata: each block of ``strata``
 requests holds every stratum's midpoint once, shuffled by the seed, so
 two seeds differ in which request gets which size and when, not in how
-much there is.  Token ids, tenants' order and the bursts' phases come
-from the seed.
+much there is.  A length spec with ``"order": "spread"`` keeps one
+order in every block instead, low and high strata interleaved, and the
+seed picks only where the stream starts in it: a closed loop whose tick
+costs follow the longest request in flight then holds its share of long
+requests in every stretch, whatever the seed.  Token ids, tenants' order
+and the bursts' phases come from the seed.
 
 * ``closed_loop``: ``clients`` callers, each sending its next request
   when the last one finished (an offline batch);
@@ -34,9 +38,21 @@ def _stratified(rng, n: int, strata: int, quantile) -> list:
     return out[:n]
 
 
+def _spread(rng, n: int, strata: int, quantile) -> list:
+    """``n`` values: every block the ``strata`` midpoints in the order of
+    their bit-reversed ranks (for 8: 0 4 2 6 1 5 3 7), the stream
+    starting at an offset drawn from ``rng``."""
+    bits = max(1, (strata - 1).bit_length())
+    order = sorted(range(strata),
+                   key=lambda j: int(format(j, f"0{bits}b")[::-1], 2))
+    mids = [quantile((j + 0.5) / strata) for j in range(strata)]
+    k = int(rng.integers(strata))
+    return [mids[order[(i + k) % strata]] for i in range(n)]
+
+
 def lengths(rng, n: int, spec: dict, strata: int) -> list:
     """Token counts: ``spec`` is ``{"min", "max", "dist": "uniform" |
-    "log_uniform"}``."""
+    "log_uniform", "order": "shuffled" | "spread"}``."""
     lo, hi = spec["min"], spec["max"]
     if spec.get("dist", "uniform") == "log_uniform":
         def q(u):
@@ -44,8 +60,8 @@ def lengths(rng, n: int, spec: dict, strata: int) -> list:
     else:
         def q(u):
             return lo + (hi - lo) * u
-    return [int(min(hi, max(lo, round(x))))
-            for x in _stratified(rng, n, strata, q)]
+    draw = _spread if spec.get("order") == "spread" else _stratified
+    return [int(min(hi, max(lo, round(x)))) for x in draw(rng, n, strata, q)]
 
 
 class Requests:
