@@ -7,6 +7,10 @@ differs, so logits agree within atol = rtol = 1e-4 and greedy tokens are
 identical.
 """
 
+import atexit
+import shutil
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,42 +35,46 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-@pytest.fixture(scope="module", autouse=True)
-def port_test_env(tmp_path_factory):
-    """The CPU budget of a port test module; every ``tests/test_torch_*.py``
-    module but the card's imports this fixture, and all is restored after.
+def _process_compilation_cache():
+    """Turn on JAX's persistent compilation cache for this test process.
 
-    The suite runs several pytest-xdist workers on one host, and nearly
-    all of a port test's time is the JAX reference compiling jits that
-    each engine instance builds anew.  So while a module runs:
-
-    * torch keeps one CPU thread: its default of one OpenMP thread per
-      core oversubscribes the host, and these smoke-size ops gain
-      nothing from threads (on an 8-core host ``tests/test_torch_obs.py``
-      alone took 102 s and 234 CPU-s with one thread, 118 s and 329 CPU-s
-      with eight);
-    * JAX's persistent compilation cache is on, in a directory of the
-      module's own, so an engine compiling the same computation as an
-      earlier one in the module loads that executable (one host:
-      ``tests/test_torch_chaos.py`` took 108 s and 208 CPU-s with it,
-      157 s and 362 CPU-s without).  A cache hit returns the executable
-      of the same computation, so no result changes.
+    Much of the suite's time is XLA compiling again what an earlier
+    engine compiled: the JAX engines wrap new closures in ``jax.jit`` for
+    each instance.  A cache hit returns the executable of the same
+    computation, so no result changes.  This module is imported while the
+    suite is collected, by the one process of a plain run and by every
+    pytest-xdist worker, so the cache is on before any test runs, in the
+    JAX package's tests as in the port's.  Its directory is this
+    process's own, made here and removed when the process exits: no run
+    or worker reads what another wrote, and nothing lands in the
+    repository.
     """
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    names = ("jax_compilation_cache_dir",
-             "jax_persistent_cache_min_compile_time_secs",
-             "jax_persistent_cache_min_entry_size_bytes")
-    saved = {name: getattr(jax.config, name) for name in names}
-    jax.config.update("jax_compilation_cache_dir",
-                      str(tmp_path_factory.mktemp("jax_compile_cache")))
+    path = tempfile.mkdtemp(prefix="jax-compile-cache-")
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     compilation_cache.reset_cache()
+
+
+_process_compilation_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_test_env():
+    """The CPU budget of a port test module; every ``tests/test_torch_*.py``
+    module but the card's imports this fixture, and all is restored after.
+
+    The suite runs several pytest-xdist workers on one host, so while a
+    module runs torch keeps one CPU thread: its default of one OpenMP
+    thread per core oversubscribes the host, and these smoke-size ops
+    gain nothing from threads (on an 8-core host ``tests/test_torch_obs.py``
+    alone took 102 s and 234 CPU-s with one thread, 118 s and 329 CPU-s
+    with eight).
+    """
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
-    for name, value in saved.items():
-        jax.config.update(name, value)
-    compilation_cache.reset_cache()
     torch.set_num_threads(threads)
 
 
